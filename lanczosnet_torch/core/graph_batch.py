@@ -1,0 +1,90 @@
+"""The dense, padded, masked graph batch every model consumes.
+
+Counterpart of ``lanczosnet_tpu/core/graph_batch.py``. Graphs are
+padded to one global ``n_max`` and carry a node mask; operators are
+stored ``[B, E, N, N]`` with channel 0 the normalized operator of the
+merged graph and channels ``1..E`` the per-edge-type operators.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclass
+class GraphBatch:
+    """A batch of padded dense graphs; all tensors share leading dim B.
+
+    atom_type ``[B, N]`` int (0 is padding), node_feat ``[B, N, Fc]``
+    float (Fc may be 0), ops ``[B, E, N, N]`` float, mask ``[B, N]``
+    float (1 real, 0 padding), and optionally label ``[B, T]``,
+    ritz_val ``[B, K]`` and ritz_vec ``[B, N, K]``.
+    """
+
+    atom_type: torch.Tensor
+    node_feat: torch.Tensor
+    ops: torch.Tensor
+    mask: torch.Tensor
+    label: Optional[torch.Tensor] = None
+    ritz_val: Optional[torch.Tensor] = None
+    ritz_vec: Optional[torch.Tensor] = None
+
+    @property
+    def n_max(self) -> int:
+        return self.mask.shape[1]
+
+    @property
+    def num_ops(self) -> int:
+        return self.ops.shape[1]
+
+    def pair_mask(self) -> torch.Tensor:
+        """``[B, N, N]`` outer product of the node mask."""
+        return self.mask[:, :, None] * self.mask[:, None, :]
+
+
+def pad_graph(
+    atom_type: np.ndarray,
+    node_feat: Optional[np.ndarray],
+    adj: np.ndarray,
+    n_max: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Pad one graph to ``n_max`` nodes: atom_type ``[n]``, node_feat
+    ``[n, Fc]`` or None, adj ``[E, n, n]`` → (atom_type ``[n_max]``,
+    node_feat ``[n_max, Fc]``, adj ``[E, n_max, n_max]``, mask ``[n_max]``)."""
+    n = int(atom_type.shape[0])
+    if n > n_max:
+        raise ValueError(f"graph has {n} nodes > n_max={n_max}")
+    at = np.zeros((n_max,), dtype=np.int32)
+    at[:n] = atom_type
+    fc = 0 if node_feat is None else node_feat.shape[-1]
+    nf = np.zeros((n_max, fc), dtype=np.float32)
+    if node_feat is not None:
+        nf[:n] = node_feat
+    a = np.zeros((adj.shape[0], n_max, n_max), dtype=np.float32)
+    a[:, :n, :n] = adj
+    mask = np.zeros((n_max,), dtype=np.float32)
+    mask[:n] = 1.0
+    return at, nf, a, mask
+
+
+def batch_graphs(graphs: Sequence[dict], n_max: int) -> dict:
+    """Stack graph dicts (``atom_type [n]``, ``adj [E,n,n]``,
+    ``label [T]``, optional ``node_feat [n,Fc]``) into padded numpy
+    arrays keyed ``atom_type``, ``node_feat``, ``adj``, ``mask``, ``label``."""
+    cols: dict[str, list] = {k: [] for k in ("atom_type", "node_feat", "adj", "mask", "label")}
+    for g in graphs:
+        feat = g.get("node_feat")
+        at, nf, a, m = pad_graph(
+            np.asarray(g["atom_type"]),
+            None if feat is None else np.asarray(feat),
+            np.asarray(g["adj"]),
+            n_max,
+        )
+        for key, val in zip(("atom_type", "node_feat", "adj", "mask"), (at, nf, a, m)):
+            cols[key].append(val)
+        cols["label"].append(np.asarray(g["label"], dtype=np.float32))
+    return {k: np.stack(v) for k, v in cols.items()}

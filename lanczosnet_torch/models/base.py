@@ -1,0 +1,84 @@
+"""Shared model components.
+
+Counterpart of ``lanczosnet_tpu/models/base.py``. A model maps a
+``GraphBatch`` to predictions ``[B, T]``; parameter names follow the
+flax modules so ``weights.py`` can map one onto the other.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+
+def mae_loss(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error over batch and tasks."""
+    return (pred - label).abs().mean()
+
+
+def flatten_feature_stack(x: torch.Tensor) -> torch.Tensor:
+    """``[B, C, N, F]`` per-channel features → ``[B, N, C·F]``, channel-major."""
+    b, c, n, f = x.shape
+    return x.movedim(1, 2).reshape(b, n, c * f)
+
+
+def edge_message_concat(ops: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Per-edge-type propagation ``[B,E,N,N]·[B,N,F]`` → ``[B,N,E·F]``."""
+    return flatten_feature_stack(torch.einsum("beij,bjf->beif", ops, h))
+
+
+class OneHotEmbed(nn.Module):
+    """Embedding with the values of ``one_hot(ids) @ table``: a row
+    lookup, and zeros for an id outside ``[0, num_embeddings)``, as the
+    one-hot product gives. ``weight`` is the flax ``embedding`` table."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(num_embeddings, features))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        num = self.weight.shape[0]
+        inside = (ids >= 0) & (ids < num)
+        rows = self.weight[ids.clamp(0, num - 1)]
+        return rows * inside[..., None].to(rows.dtype)
+
+
+class NodeEncoder(nn.Module):
+    """Atom-type embedding ⊕ continuous node features, padding zeroed."""
+
+    def __init__(self, num_atom: int, embed_dim: int):
+        super().__init__()
+        self.atom_embed = OneHotEmbed(num_atom, embed_dim)
+
+    def forward(
+        self, atom_type: torch.Tensor, node_feat: torch.Tensor, mask: torch.Tensor
+    ) -> torch.Tensor:
+        h = self.atom_embed(atom_type)
+        if node_feat is not None and node_feat.shape[-1] > 0:
+            h = torch.cat([h, node_feat], dim=-1)
+        return h * mask[..., None]
+
+
+class AttentionReadout(nn.Module):
+    """Gated attention pooling → ``[B, T]``:
+    ``Σ_n mask_n · σ(gate(h_n)) · head(h_n)``."""
+
+    def __init__(self, in_dim: int, num_task: int, output_hidden_dim: Sequence[int] = ()):
+        super().__init__()
+        self.att_gate = nn.Linear(in_dim, 1)
+        hidden = []
+        for d in output_hidden_dim:
+            hidden.append(nn.Linear(in_dim, d))
+            in_dim = d
+        self.out_hidden = nn.ModuleList(hidden)
+        self.out_proj = nn.Linear(in_dim, num_task)
+
+    def forward(self, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        gate = torch.sigmoid(self.att_gate(h))
+        out = h
+        for lin in self.out_hidden:
+            out = torch.relu(lin(out))
+        out = self.out_proj(out)
+        return (gate * out * mask[..., None]).sum(1)

@@ -1,0 +1,252 @@
+"""LanczosNet: multi-scale spectral graph convolution (arXiv:1901.01484).
+
+Counterpart of ``lanczosnet_tpu/models/lanczos_net.py``, fused path
+only (N ≤ 128). Per layer the propagation channels are, in this
+(c-major) order:
+
+- short scales ``S^t`` for ``t`` in ``short_diffusion_dist``, the exact
+  powers of the channel-0 operator, formed once per forward;
+- long scales ``V diag(f_t(D)) Vᵀ`` for ``t`` in ``long_diffusion_dist``
+  from the K Ritz pairs (D, V), with ``f_t`` a learned per-(layer,
+  scale) MLP over ``[D, D^t]`` (``spectral_filter_kind: MLP``) or the
+  plain power ``D^t``;
+- one-hop per-edge-type operators, channels ``1..E`` of the stack.
+
+The layer is ``Linear([h ‖ channels @ h])`` → ReLU → Dropout → mask,
+and the gated attention readout follows the last layer.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from lanczosnet_torch.core.graph_batch import GraphBatch
+from lanczosnet_torch.models.base import AttentionReadout, NodeEncoder, flatten_feature_stack
+
+# Above this many padded nodes the JAX model switches to its factored
+# low-rank path, which is not ported yet (ROADMAP A3).
+FUSED_N_MAX = 128
+
+
+def integer_pow(x: torch.Tensor, t: int) -> torch.Tensor:
+    """``x ** t`` for an integer ``t ≥ 1`` by repeated squaring, in the
+    order of ``jax.lax.integer_pow``: exact in sign for negative ``x``
+    and the same rounding as the JAX model."""
+    acc = None
+    while t > 0:
+        if t & 1:
+            acc = x if acc is None else acc * x
+        t >>= 1
+        if t > 0:
+            x = x * x
+    return acc
+
+
+class SpectralFilterBank(nn.Module):
+    """All layers' per-scale filters at once: ``[B,K]`` → ``[B,L,S,K]``.
+
+    Parameters are stacked as in the flax bank: ``w1 [L,S,2,H]``,
+    ``b1 [L,S,H]``, ``w2 [L,S,H,1]``, ``b2 [L,S,1]``.
+    """
+
+    def __init__(self, num_layers: int, long_dists: Sequence[int],
+                 kind: str = "MLP", filter_hidden_dim: int = 16):
+        super().__init__()
+        self.num_layers = num_layers
+        self.long_dists = tuple(int(t) for t in long_dists)
+        self.mlp = kind.upper() == "MLP"
+        if self.mlp:
+            l, s, h = num_layers, len(self.long_dists), filter_hidden_dim
+            self.w1 = nn.Parameter(torch.zeros(l, s, 2, h))
+            self.b1 = nn.Parameter(torch.zeros(l, s, h))
+            self.w2 = nn.Parameter(torch.zeros(l, s, h, 1))
+            self.b2 = nn.Parameter(torch.zeros(l, s, 1))
+
+    def forward(self, ritz_val: torch.Tensor) -> torch.Tensor:
+        power = torch.stack([integer_pow(ritz_val, t) for t in self.long_dists], dim=1)
+        b = ritz_val.shape[0]
+        if not self.mlp:
+            return power[:, None].expand(b, self.num_layers, *power.shape[1:])
+        feat = torch.stack([ritz_val[:, None, :].expand_as(power), power], dim=-1)
+        z = torch.relu(
+            torch.einsum("bskc,lsch->blskh", feat, self.w1) + self.b1[None, :, :, None, :]
+        )
+        out = torch.einsum("blskh,lsho->blsko", z, self.w2) + self.b2[None, :, :, None, :]
+        return out[..., 0]
+
+
+def operator_powers(s_op: torch.Tensor, dists: Sequence[int]) -> torch.Tensor:
+    """``[S^t for t in dists]`` → ``[B,T,N,N]``, each power formed once."""
+    pows = {1: s_op}
+    cur = s_op
+    for t in range(2, max(dists) + 1):
+        cur = torch.bmm(s_op, cur)
+        pows[t] = cur
+    return torch.stack([pows[t] for t in dists], dim=1)
+
+
+def channel_stack(
+    short_ops: torch.Tensor | None,
+    ritz_vec: torch.Tensor | None,
+    filt: torch.Tensor | None,
+    edge_ops: torch.Tensor | None,
+) -> torch.Tensor:
+    """One layer's propagation operators ``[B, C, N, N]``:
+    ``[S^t… ‖ V f_s(D) Vᵀ… ‖ A_e…]`` in that order."""
+    chans = []
+    if short_ops is not None:
+        chans.append(short_ops)
+    if filt is not None:
+        scaled_v = filt[:, :, None, :] * ritz_vec[:, None, :, :]  # [B,S,N,K]
+        chans.append(torch.matmul(scaled_v, ritz_vec.transpose(1, 2)[:, None]))
+    if edge_ops is not None:
+        chans.append(edge_ops)
+    return torch.cat(chans, dim=1) if len(chans) > 1 else chans[0]
+
+
+def spectral_layer_channels(
+    h: torch.Tensor,
+    short_ops: torch.Tensor | None,
+    ritz_vec: torch.Tensor | None,
+    filt: torch.Tensor | None,
+    edge_ops: torch.Tensor | None,
+) -> torch.Tensor:
+    """All of a layer's propagation channels applied to ``h [B,N,F]`` in
+    one batched product → ``[B, N, C·F]``."""
+    stack = channel_stack(short_ops, ritz_vec, filt, edge_ops)
+    return flatten_feature_stack(torch.matmul(stack, h[:, None]))
+
+
+class LanczosNet(nn.Module):
+    """LanczosNet over a ``GraphBatch`` carrying Ritz pairs → ``[B, T]``.
+
+    float32, graph task, fused path only. ``num_edge_type`` and
+    ``node_feat_dim`` fix the layer widths that flax infers from the
+    first batch.
+    """
+
+    def __init__(
+        self,
+        num_atom: int,
+        embed_dim: int,
+        hidden_dim: Sequence[int],
+        num_task: int,
+        short_diffusion_dist: Sequence[int] = (1, 2, 3),
+        long_diffusion_dist: Sequence[int] = (5, 7, 10, 20, 30),
+        num_eig_vec: int = 20,
+        spectral_filter_kind: str = "MLP",
+        filter_hidden_dim: int = 16,
+        output_hidden_dim: Sequence[int] = (),
+        dropout: float = 0.0,
+        num_edge_type: int = 4,
+        node_feat_dim: int = 0,
+        task: str = "graph",
+        sum_dense: bool = False,
+        dtype: str | None = None,
+    ):
+        super().__init__()
+        if task != "graph":
+            raise NotImplementedError(f"task={task!r}: node heads are ROADMAP A9")
+        if sum_dense:
+            raise NotImplementedError("model.sum_dense is ROADMAP A3")
+        if dtype is not None and str(dtype) not in ("float32", "f32"):
+            raise NotImplementedError(f"model.dtype={dtype!r}: only float32 is ported (ROADMAP A3)")
+        self.short_dists = tuple(int(t) for t in short_diffusion_dist)
+        self.long_dists = tuple(int(t) for t in long_diffusion_dist)
+        self.num_eig_vec = int(num_eig_vec)
+        self.num_edge_type = int(num_edge_type)
+        self.encoder = NodeEncoder(num_atom, embed_dim)
+        self.spectral_filters = (
+            SpectralFilterBank(len(hidden_dim), self.long_dists,
+                               spectral_filter_kind, filter_hidden_dim)
+            if self.long_dists else None
+        )
+        channels = len(self.short_dists) + len(self.long_dists) + self.num_edge_type
+        d_in = embed_dim + node_feat_dim
+        layers = []
+        for dim in hidden_dim:
+            layers.append(nn.Linear(d_in * (1 + channels), dim))
+            d_in = dim
+        self.layers = nn.ModuleList(layers)
+        self.dropout = nn.Dropout(dropout)
+        self.readout = AttentionReadout(d_in, num_task, output_hidden_dim)
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "LanczosNet":
+        """From the YAML ``model:`` section with ``num_atom`` and
+        ``num_task`` merged in, as the JAX model reads it."""
+        return cls(
+            num_atom=cfg["num_atom"],
+            embed_dim=cfg.get("embed_dim", cfg["hidden_dim"][0]),
+            hidden_dim=tuple(cfg["hidden_dim"]),
+            num_task=cfg["num_task"],
+            short_diffusion_dist=tuple(cfg.get("short_diffusion_dist", (1, 2, 3))),
+            long_diffusion_dist=tuple(cfg.get("long_diffusion_dist", (5, 7, 10, 20, 30))),
+            num_eig_vec=cfg.get("num_eig_vec", 20),
+            spectral_filter_kind=cfg.get("spectral_filter_kind", "MLP"),
+            filter_hidden_dim=cfg.get("filter_hidden_dim", 16),
+            output_hidden_dim=tuple(cfg.get("output_hidden_dim", ())),
+            dropout=cfg.get("dropout", 0.0),
+            num_edge_type=cfg.get("num_edge_type", 4),
+            node_feat_dim=cfg.get("node_feat_dim", 0),
+            task=cfg.get("task", "graph"),
+            sum_dense=bool(cfg.get("sum_dense", False)),
+            dtype=cfg.get("dtype"),
+        )
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Draw every weight from ``generator``: normal with variance
+        1/fan_in (as flax's lecun_normal, untruncated), biases zero."""
+
+        def normal_(p: torch.Tensor, fan_in: int) -> None:
+            p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+
+        emb = self.encoder.atom_embed.weight
+        normal_(emb, emb.shape[0])
+        bank = self.spectral_filters
+        if bank is not None and bank.mlp:
+            normal_(bank.w1, bank.w1.shape[-2])
+            normal_(bank.w2, bank.w2.shape[-2])
+            bank.b1.zero_()
+            bank.b2.zero_()
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                normal_(mod.weight, mod.in_features)
+                mod.bias.zero_()
+
+    def forward(self, batch: GraphBatch) -> torch.Tensor:
+        if batch.ritz_val is None or batch.ritz_vec is None:
+            raise ValueError("LanczosNet needs the batch's Ritz pairs (ritz_val/ritz_vec)")
+        n = batch.n_max
+        if n > FUSED_N_MAX:
+            raise NotImplementedError(
+                f"n={n} > {FUSED_N_MAX}: the factored large-graph path is ROADMAP A3"
+            )
+        if batch.num_ops - 1 != self.num_edge_type:
+            raise ValueError(
+                f"batch has {batch.num_ops - 1} edge-type operators, model "
+                f"was built for num_edge_type={self.num_edge_type}"
+            )
+        mask = batch.mask
+        h = self.encoder(batch.atom_type, batch.node_feat, mask)
+        s_op = batch.ops[:, 0]
+        filt_bank = (
+            self.spectral_filters(batch.ritz_val)
+            if self.spectral_filters is not None else None
+        )
+        short_ops = operator_powers(s_op, self.short_dists) if self.short_dists else None
+        edge_ops = batch.ops[:, 1:] if batch.num_ops > 1 else None
+        for li, layer in enumerate(self.layers):
+            filt = filt_bank[:, li] if filt_bank is not None else None
+            if short_ops is not None or filt is not None or edge_ops is not None:
+                prop = spectral_layer_channels(h, short_ops, batch.ritz_vec, filt, edge_ops)
+                h = torch.cat([h, prop], dim=-1)
+            h = torch.relu(layer(h))
+            h = self.dropout(h)
+            h = h * mask[..., None]
+        return self.readout(h, mask)

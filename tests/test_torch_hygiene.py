@@ -1,0 +1,54 @@
+"""The port stands alone: no JAX, flax, YAML or msgpack, and nothing of
+the JAX package, in ``lanczosnet_torch`` or ``chip_smoke.py``.
+
+The import check runs in a fresh interpreter: this test process has
+imported JAX already (tests/conftest.py).
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "lanczosnet_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "lanczosnet_tpu")
+
+
+def port_sources() -> list[Path]:
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_importing_every_port_module_pulls_in_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import lanczosnet_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(lanczosnet_torch.__path__, 'lanczosnet_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 10 else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_import_nothing_forbidden():
+    offenders = []
+    for path in port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [
+                f"{path.relative_to(REPO)}:{node.lineno} {n}"
+                for n in names if n.split(".")[0] in FORBIDDEN
+            ]
+    assert not offenders
