@@ -7,20 +7,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: a CUDA card must be visible; TF32 is switched off for
    matmuls and cuDNN, and the card's name and power limit are printed.
-2. build: every kernel of the serving path is built with nvcc from
-   ``lanczosnet_torch/csrc`` (seconds and ``-Xptxas -v`` report).
-3. kernel: the Lanczos kernel against its plain PyTorch version on the
-   card, all six outputs within 1e-4 and the same breakdown step, on
-   masked random operators, an all-zero graph, QM8-like operators at
-   B=64, N=32, K=20, and N=128; then both timed with CUDA events at
-   B=64 and B=256.
+2. build: both kernels are built with nvcc from
+   ``lanczosnet_torch/csrc``, together (seconds and ``-Xptxas -v``
+   report).
+3. kernel: the shared-memory Lanczos kernel (N ≤ 128) against its plain
+   PyTorch version on the card, all six outputs within 1e-4 and the
+   same breakdown step, on masked random operators, an all-zero graph,
+   QM8-like operators at B=64, N=32, K=20, and N=128; then both timed
+   with CUDA events at B=64 and B=256.
 4. serve: the flagship LanczosNet of ``configs/qm8_lanczos_net.yaml``
    at full width, weights drawn from a seeded generator, behind
    ``Predictor`` and ``MicroBatcher``, answers QM8-like requests from
    several client threads; every answer is finite and matches the same
    model fed the plain version's Ritz pairs on the card (1e-4); the
    kernel's launch count must grow during this run.
-5. kernels: one line per ported kernel, its error, times and launches.
+5. stream_kernel: the streamed Lanczos kernel (N > 128) against its
+   plain version on the card, the same contract, on masked random
+   operators at N=300, a 130-node graph with 3 real nodes, an all-zero
+   graph at N=256 and the learned operator of the Cora-sized
+   AdaLanczosNet (B=1, N=2708, K=20); then both timed at that shape.
+6. citation_train: ``CitationRunner`` trains the AdaLanczosNet of
+   ``configs/cora_ada_lanczos_net.yaml`` at full width on a synthetic
+   Cora-sized graph (N=2708, F=1433, 7 classes) for a few epochs and
+   tests it; the streamed kernel's call count must grow by at least one
+   per forward, every loss is finite, the last epoch's train CE is
+   below the first's, and eval-mode logits and the ``kernel_embed``
+   gradient agree between the kernel forward and the plain forward
+   (1e-4); step times and the stage split are printed.
+7. kernels: one line per ported kernel, its error, times and launches.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -29,6 +43,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -39,10 +54,22 @@ from lanczosnet_torch.core.graph_batch import batch_graphs
 from lanczosnet_torch.data.qm8 import NUM_ATOM, NUM_TASK, synthetic_qm8_graphs
 from lanczosnet_torch.models import build_model
 from lanczosnet_torch.ops import _build, lanczos_cuda
-from lanczosnet_torch.ops.lanczos import lanczos_start_vector, lanczos_tridiag_resid
-from lanczosnet_torch.ops.lanczos_cuda import ritz_from_tridiag
+from lanczosnet_torch.ops.lanczos import (
+    lanczos_adjoint_bwd,
+    lanczos_start_vector,
+    lanczos_tridiag_resid,
+    lanczos_tridiag_resid_stream,
+)
+from lanczosnet_torch.ops.lanczos_cuda import LanczosTridiag, ritz_from_tridiag
 from lanczosnet_torch.ops.normalize import build_operator_stack
 from lanczosnet_torch.serve import MicroBatcher, Predictor
+from lanczosnet_torch.train.citation_runner import CitationRunner
+from lanczosnet_torch.train.node_step import (
+    make_node_eval_step,
+    make_node_train_step,
+    masked_ce_loss,
+)
+from lanczosnet_torch.train.optim import build_optimizer
 
 # configs/qm8_lanczos_net.yaml, its model and dataset sections as written
 # (a test holds these literals to the file; the card has no YAML reader)
@@ -68,6 +95,39 @@ FLAGSHIP_DATASET = {
     "standardize": True,
     "operator_kind": "sym",
 }
+# configs/cora_ada_lanczos_net.yaml, its model, dataset and train sections
+# and its seed as written (the same test holds them to the file)
+CORA_ADA_MODEL = {
+    "name": "AdaLanczosNet",
+    "hidden_dim": [64, 64],
+    "embed_dim": 64,
+    "kernel_dim": 16,
+    "use_graph_support": True,
+    "short_diffusion_dist": [1, 2, 3],
+    "long_diffusion_dist": [5, 7, 10],
+    "num_eig_vec": 20,
+    "spectral_filter_kind": "MLP",
+    "lanczos_impl": "auto",
+    "dropout": 0.5,
+    "task": "node",
+}
+CORA_ADA_DATASET = {
+    "source": "synthetic",
+    "name": "cora",
+    "scale": 1.0,
+    "operator_kind": "sym",
+}
+CORA_ADA_TRAIN = {
+    "optimizer": "Adam",
+    "lr": 1.0e-2,
+    "wd": 5.0e-4,
+    "max_epoch": 200,
+    "patience": 40,
+    "display_iter": 20,
+}
+CORA_ADA_SEED = 1234
+CITATION_EPOCHS = 12  # the depth cut: of max_epoch 200
+CORA_SHAPE = (2708, 1433, 7)  # nodes, features, classes: the real dataset's
 SERVE_BATCH = 64
 TOL = 1e-4  # the kernel's contract with its plain version, all six outputs
 OUTPUTS = ("alphas", "betas_full", "q", "p1", "p2", "w4")
@@ -128,6 +188,37 @@ def lanczos_bound(b: int, n: int, k: int) -> tuple[float, str, int, int]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+def lanczos_stream_bound(b: int, n: int, k: int) -> dict:
+    """``lanczos_bound`` for the streamed kernel, and beside it the time
+    of reading S from device memory once per step (K times): what a
+    design that does not keep S in the L2 cache is held to."""
+    bound_ms, bound_by, nbytes, flops = lanczos_bound(b, n, k)
+    streamed = 4 * b * n * n * k
+    return dict(bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+                s_read_k_times_bytes=streamed,
+                s_read_k_times_ms=streamed / HBM_BYTES_PER_S * 1e3)
+
+
+def compare_outputs(name: str, s, k: int, got, want) -> float:
+    """Hold a kernel's six outputs to its plain version's: finite, within
+    TOL, the same breakdown step. Returns the largest error."""
+    errs = {}
+    for out, g, w in zip(OUTPUTS, got, want):
+        if not torch.isfinite(g).all():
+            raise SmokeFailure(f"{name}: kernel output {out} is not finite")
+        errs[out] = float((g - w).abs().max())
+    steps_kernel = (got[1] > 0).sum(1)
+    same_breakdown = bool(torch.equal(steps_kernel, (want[1] > 0).sum(1)))
+    err = max(errs.values())
+    emit("kernel", case=name, shape=list(s.shape), k=k, max_abs_err=errs,
+         valid_steps=steps_kernel.tolist(), same_breakdown=same_breakdown, tol=TOL)
+    if err > TOL:
+        raise SmokeFailure(f"{name}: kernel differs from its plain version by {err} > {TOL}")
+    if not same_breakdown:
+        raise SmokeFailure(f"{name}: kernel and plain version break down at different steps")
+    return err
+
+
 def spd_case(rng, b: int, n: int, counts) -> tuple[np.ndarray, np.ndarray]:
     s = rng.standard_normal((b, n, n)).astype(np.float32) * 0.3
     s = 0.5 * (s + s.transpose(0, 2, 1))
@@ -163,7 +254,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    built = _build.build_all(["lanczos_tridiag"])
+    built = _build.build_all(["lanczos_tridiag", "lanczos_stream"])
     for b in built:
         log = [ln.strip() for ln in b.log.splitlines() if ln.strip()]
         emit("build", kernel=b.name, seconds=b.seconds, library=b.path.name, nvcc_log=log)
@@ -192,22 +283,7 @@ def phase_kernel(dev) -> dict:
         torch.cuda.synchronize()
         want = lanczos_tridiag_resid(s, mask, k, EPS)
         torch.cuda.synchronize()
-        errs = {}
-        for out, g, w in zip(OUTPUTS, got, want):
-            if not torch.isfinite(g).all():
-                raise SmokeFailure(f"{name}: kernel output {out} is not finite")
-            errs[out] = float((g - w).abs().max())
-        steps_kernel = (got[1] > 0).sum(1)
-        steps_plain = (want[1] > 0).sum(1)
-        same_breakdown = bool(torch.equal(steps_kernel, steps_plain))
-        err = max(errs.values())
-        worst = max(worst, err)
-        emit("kernel", case=name, shape=list(s.shape), k=k, max_abs_err=errs,
-             valid_steps=steps_kernel.tolist(), same_breakdown=same_breakdown, tol=TOL)
-        if err > TOL:
-            raise SmokeFailure(f"{name}: kernel differs from its plain version by {err} > {TOL}")
-        if not same_breakdown:
-            raise SmokeFailure(f"{name}: kernel and plain version break down at different steps")
+        worst = max(worst, compare_outputs(name, s, k, got, want))
 
     k = FLAGSHIP_MODEL["num_eig_vec"]
     timing = {}
@@ -298,6 +374,7 @@ def phase_serve(dev, smi: str) -> int:
             futs[i].result(timeout=300)
 
     lanczos_cuda.launches.reset()
+    lanczos_cuda.stream_launches.reset()
     mb = MicroBatcher(pred, max_delay_ms=5.0)
     try:
         t0 = time.perf_counter()
@@ -331,13 +408,254 @@ def phase_serve(dev, smi: str) -> int:
     return launches
 
 
+def citation_config(save_dir: str) -> dict:
+    """The whole of ``configs/cora_ada_lanczos_net.yaml`` as a mapping,
+    with the depth cut to ``CITATION_EPOCHS`` and every epoch logged."""
+    return {
+        "exp_name": "cora_ada_lanczos_net",
+        "runner": "CitationRunner",
+        "seed": CORA_ADA_SEED,
+        "save_dir": save_dir,
+        "dataset": dict(CORA_ADA_DATASET),
+        "model": dict(CORA_ADA_MODEL),
+        "train": {**CORA_ADA_TRAIN, "max_epoch": CITATION_EPOCHS, "display_iter": 1},
+        "test": {"test_model": None},
+    }
+
+
+def phase_stream_kernel(dev, runner: CitationRunner) -> dict:
+    rng = np.random.default_rng(7)
+    cases = {}
+    s, mask = spd_case(rng, 2, 300, [300, 200])
+    cases["spd-n300-k8"] = (torch.from_numpy(s * (1.0 / 3.0)).to(dev), torch.from_numpy(mask).to(dev), 8)
+    s, mask = spd_case(rng, 1, 130, [3])
+    cases["n130-3-real-nodes-k8"] = (torch.from_numpy(s).to(dev), torch.from_numpy(mask).to(dev), 8)
+    cases["zero-graph-n256-k6"] = (torch.zeros(2, 256, 256, device=dev), torch.ones(2, 256, device=dev), 6)
+    k = CORA_ADA_MODEL["num_eig_vec"]
+    model, batch = runner.model.eval(), runner.batch
+    with torch.no_grad():
+        h = model.encoder(batch.atom_type, batch.node_feat, batch.mask)
+        s_cora = model.learned_operator(h, batch).contiguous()
+    cases["cora-learned-operator-n2708-k20"] = (s_cora, batch.mask, k)
+
+    worst = 0.0
+    for name, (s, mask, kk) in cases.items():
+        before = lanczos_cuda.stream_launches.count
+        got = lanczos_cuda.lanczos_tridiag_cuda_resid(s, mask, kk, EPS)
+        torch.cuda.synchronize()
+        if lanczos_cuda.stream_launches.count != before + 1:
+            raise SmokeFailure(f"{name}: the wrapper did not launch the streamed kernel")
+        want = lanczos_cuda.lanczos_tridiag_cuda_resid(s, mask, kk, EPS, impl="plain")
+        torch.cuda.synchronize()
+        worst = max(worst, compare_outputs(name, s, kk, got, want))
+
+    b, n, _ = s_cora.shape
+    q, part, *outs = lanczos_cuda.stream_buffers(b, n, k, dev)
+    q[:, 0] = lanczos_start_vector(batch.mask, EPS)
+    kernel_ms = cuda_ms(lambda: lanczos_cuda.launch_stream(s_cora, q, part, tuple(outs), k, EPS), 50, 5)
+    # the same with the 50 MB L2 cache overwritten before each call
+    flush = torch.empty(64 * 1024 * 1024, device=dev)
+    cold = []
+    for _ in range(10):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        lanczos_cuda.launch_stream(s_cora, q, part, tuple(outs), k, EPS)
+        end.record()
+        end.synchronize()
+        cold.append(start.elapsed_time(end))
+    plain_ms = cuda_ms(lambda: lanczos_tridiag_resid_stream(s_cora, batch.mask, k, EPS), 3, 1)
+    timing = dict(kernel_ms=kernel_ms, kernel_ms_l2_flushed=float(np.median(cold)),
+                  plain_ms=plain_ms, device_launches_per_call=2 * k,
+                  **lanczos_stream_bound(b, n, k))
+    emit("kernel_time", kernel="lanczos_stream", batch=b, n=n, k=k, **timing)
+    return {"max_abs_err": worst, "timing": timing}
+
+
+def citation_stage_breakdown(runner: CitationRunner, reps: int = 7) -> dict:
+    """Host-clock milliseconds of each stage of one training step
+    (dropout on), each stage ended by a device synchronize; medians."""
+    model, batch, sup = runner.model.train(), runner.batch, runner.splits["train"]
+    k = model.num_eig_vec
+    times = {"learned_operator": [], "lanczos_call": [], "eigh_and_rotation": [],
+             "layers_and_loss": [], "backward": []}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times[name].append((t1 - t0) * 1e3)
+        return t1
+
+    for _ in range(reps):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        h = model.encoder(batch.atom_type, batch.node_feat, batch.mask)
+        s_op = model.learned_operator(h, batch)
+        t = mark("learned_operator", t)
+        alphas, betas, q = LanczosTridiag.apply(s_op, batch.mask, k, EPS, "auto")
+        t = mark("lanczos_call", t)
+        ritz_val, ritz_vec = ritz_from_tridiag(alphas, betas[:, : k - 1], q)
+        t = mark("eigh_and_rotation", t)
+        loss = masked_ce_loss(model.propagate(batch, h, s_op, ritz_val, ritz_vec),
+                              batch.node_label, sup)
+        t = mark("layers_and_loss", t)
+        loss.backward()
+        mark("backward", t)
+    model.zero_grad(set_to_none=True)
+    out = {name: float(np.median(v)) for name, v in times.items()}
+    # the adjoint recursion alone, the part of the backward that is the
+    # Lanczos call's own, on this step's residuals and random cotangents
+    resid = lanczos_cuda.lanczos_tridiag_cuda_resid(s_op.detach(), batch.mask, k, EPS)
+    bars = [torch.randn_like(o) for o in resid[:3]]
+    out["backward_adjoint_recursion_alone"] = host_ms(
+        lambda: lanczos_adjoint_bwd(s_op.detach(), *resid, *bars, eps=EPS), reps, 1)
+    return out
+
+
+def profile_train_steps(train_step, batch, sup_mask, step_ms: float, steps: int = 5) -> dict:
+    """A ``torch.profiler`` trace of a few training steps: the device
+    time of all kernels of a step, its share of ``step_ms`` (the step's
+    time without the profiler, whose own overhead stretches the traced
+    steps several times over), and the kernels that took most of it.
+    ``None`` values where the trace holds no device time (then it was
+    not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            train_step(batch, sup_mask)
+        torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device-side events that are kernels or copies: the optimizer's user
+    # annotation ("Optimizer.step#Adam.step") is mirrored on the device's
+    # timeline too and would count its kernels twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    if busy_ms <= 0:
+        return {"device_busy_share": None, "top_kernels": None, "profiled_steps": steps}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / step_ms,
+        "device_idle_share": 1.0 - busy_ms / step_ms,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+        "step_ms_under_profiler": traced_ms,
+        "profiled_steps": steps,
+        "top_kernels": [
+            {"name": e.key[:60], "launches_per_step": e.count / steps,
+             "ms_per_step": e.self_device_time_total / steps / 1e3} for e in top
+        ],
+    }
+
+
+def host_ms(fn, reps: int, warmup: int) -> float:
+    """Median host-clock milliseconds of ``fn`` between device synchronizes."""
+    out = []
+    for i in range(warmup + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def phase_citation_train(runner: CitationRunner, smi: str) -> int:
+    model, batch, splits = runner.model, runner.batch, runner.splits
+    shape = (batch.n_max, batch.node_feat.shape[-1], model.readout.node_proj.out_features)
+    if shape != CORA_SHAPE:
+        raise SmokeFailure(f"the citation graph is {shape}, not Cora-sized {CORA_SHAPE}")
+
+    lanczos_cuda.launches.reset()
+    lanczos_cuda.stream_launches.reset()
+    t0 = time.perf_counter()
+    trained = runner.train()
+    tested = runner.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lanczos_cuda.stream_launches.count
+    small_launches = lanczos_cuda.launches.count
+
+    recs = [json.loads(ln) for ln in (runner.run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs if r["event"] == "train"]
+    # a forward for the train step and one for validation every epoch,
+    # one for the test inside train() and one for test()
+    forwards = 2 * len(losses) + 2
+
+    # the kernel forward against the plain forward, same weights, eval mode
+    def logits_and_grad(impl: str):
+        model.lanczos_impl = impl
+        model.eval()
+        model.zero_grad(set_to_none=True)
+        logits = model(batch)
+        masked_ce_loss(logits, batch.node_label, splits["train"]).backward()
+        return logits.detach(), model.kernel_embed.weight.grad.clone()
+
+    try:
+        logits_k, grad_k = logits_and_grad("kernel")
+        logits_p, grad_p = logits_and_grad("plain")
+    finally:
+        model.lanczos_impl = CORA_ADA_MODEL["lanczos_impl"]
+        model.zero_grad(set_to_none=True)
+    logit_err = float((logits_k - logits_p).abs().max())
+    grad_scale = float(grad_p.abs().max())
+    grad_err = float((grad_k - grad_p).abs().max()) / max(grad_scale, 1e-30)
+
+    optimizer, scheduler, clip = build_optimizer(model.parameters(), CORA_ADA_TRAIN)
+    train_step = make_node_train_step(model, optimizer, scheduler, clip)
+    eval_step = make_node_eval_step(model)
+    train_ms = host_ms(lambda: train_step(batch, splits["train"]), 10, 2)
+    eval_ms = host_ms(lambda: eval_step(batch, splits["val"]), 10, 2)
+    stages = citation_stage_breakdown(runner)
+    trace = profile_train_steps(train_step, batch, splits["train"], train_ms)
+
+    emit(
+        "citation_train", epochs=len(losses), seconds=wall, train_ce=losses,
+        best_val_acc=trained["best_val_acc"], test_acc=tested["test_acc"],
+        lanczos_stream_calls=launches, forwards=forwards, lanczos_tridiag_launches=small_launches,
+        logits_max_abs_err_kernel_vs_plain=logit_err, kernel_embed_grad_scaled_err=grad_err,
+        kernel_embed_grad_abs_max=grad_scale, tol=TOL,
+        train_step_ms=train_ms, eval_step_ms=eval_ms, stage_ms=stages, profiler=trace,
+        peak_memory_mb=torch.cuda.max_memory_allocated() / 2**20, nvidia_smi=smi,
+    )
+    if len(losses) != CITATION_EPOCHS or not np.isfinite(losses).all():
+        raise SmokeFailure(f"training losses are not {CITATION_EPOCHS} finite numbers: {losses}")
+    if not losses[-1] < losses[0]:
+        raise SmokeFailure(f"train CE did not fall: first {losses[0]}, last {losses[-1]}")
+    if not (0.0 <= tested["test_acc"] <= 1.0 and trained["test_acc"] == tested["test_acc"]):
+        raise SmokeFailure(f"test accuracy is off: {trained} then {tested}")
+    if launches < forwards:
+        raise SmokeFailure(
+            f"{forwards} forwards launched the streamed Lanczos kernel only {launches} times")
+    if not (torch.isfinite(logits_k).all() and logit_err <= TOL):
+        raise SmokeFailure(f"kernel and plain forward differ in the logits by {logit_err} > {TOL}")
+    if not (torch.isfinite(grad_k).all() and grad_scale > 0 and grad_err <= TOL):
+        raise SmokeFailure(
+            f"kernel and plain forward differ in the kernel_embed gradient by {grad_err} "
+            f"of its largest entry > {TOL}")
+    return launches
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     kern = phase_kernel(dev)
     launches = phase_serve(dev, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cora_") as run_dir:
+        runner = CitationRunner(citation_config(run_dir), device=dev)
+        stream = phase_stream_kernel(dev, runner)
+        stream_launches = phase_citation_train(runner, smi)
     t64, t256 = kern["timing"][SERVE_BATCH], kern["timing"][256]
+    ts = stream["timing"]
+    no_library = "none: no single PyTorch call computes K-step Lanczos"
     print(json.dumps({"kernels": [{
         "name": "lanczos_tridiag",
         "route": "cuda",
@@ -351,9 +669,27 @@ def main() -> None:
         "bound_ms": t64["bound_ms"],
         "bound_by": t64["bound_by"],
         "library_ms": None,
-        "library": "none: no single PyTorch call computes K-step Lanczos",
+        "library": no_library,
         "shape": f"B={SERVE_BATCH} N=32 K=20",
         "b256": t256,
+    }, {
+        "name": "lanczos_stream",
+        "route": "cuda",
+        "source": "lanczosnet_torch/csrc/lanczos_stream.cu",
+        "replaces": "lanczosnet_tpu/ops/lanczos_pallas.py:184",
+        "launches": stream_launches,
+        "max_abs_err": stream["max_abs_err"],
+        "ms": ts["kernel_ms"],
+        "kernel_ms": ts["kernel_ms"],
+        "plain_ms": ts["plain_ms"],
+        "bound_ms": ts["bound_ms"],
+        "bound_by": ts["bound_by"],
+        "library_ms": None,
+        "library": no_library,
+        "shape": "B=1 N=2708 K=20",
+        "launches_counts": "calls of the wrapper; each is 2K device launches",
+        "kernel_ms_l2_flushed": ts["kernel_ms_l2_flushed"],
+        "s_read_k_times_ms": ts["s_read_k_times_ms"],
     }]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,11 @@ class GraphBatch:
     atom_type ``[B, N]`` int (0 is padding), node_feat ``[B, N, Fc]``
     float (Fc may be 0), ops ``[B, E, N, N]`` float, mask ``[B, N]``
     float (1 real, 0 padding), and optionally label ``[B, T]``,
-    ritz_val ``[B, K]`` and ritz_vec ``[B, N, K]``.
+    ritz_val ``[B, K]``, ritz_vec ``[B, N, K]``, cluster ``[B, N]`` int
+    (a partition assignment, -1 for padding; no ported model reads it)
+    and node_label ``[B, N]`` int (per-node classes for full-graph node
+    classification; which nodes are supervised is a separate mask given
+    to the loss).
     """
 
     atom_type: torch.Tensor
@@ -32,6 +36,8 @@ class GraphBatch:
     label: Optional[torch.Tensor] = None
     ritz_val: Optional[torch.Tensor] = None
     ritz_vec: Optional[torch.Tensor] = None
+    cluster: Optional[torch.Tensor] = None
+    node_label: Optional[torch.Tensor] = None
 
     @property
     def n_max(self) -> int:

@@ -4,12 +4,12 @@ Counterpart of ``lanczosnet_tpu/models/__init__.py``. Models of the JAX
 registry that are not ported yet raise and name their ROADMAP item.
 """
 
+from lanczosnet_torch.models.ada_lanczos_net import AdaLanczosNet
 from lanczosnet_torch.models.lanczos_net import LanczosNet
 
-MODEL_REGISTRY = {"LanczosNet": LanczosNet}
+MODEL_REGISTRY = {"LanczosNet": LanczosNet, "AdaLanczosNet": AdaLanczosNet}
 
 _NOT_PORTED = {
-    "AdaLanczosNet": "A6",
     "GCN": "A7",
     "GraphSAGE": "A7",
     "DCNN": "A7",

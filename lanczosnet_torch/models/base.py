@@ -30,19 +30,20 @@ def edge_message_concat(ops: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 
 class OneHotEmbed(nn.Module):
-    """Embedding with the values of ``one_hot(ids) @ table``: a row
-    lookup, and zeros for an id outside ``[0, num_embeddings)``, as the
-    one-hot product gives. ``weight`` is the flax ``embedding`` table."""
+    """Embedding computed as ``one_hot(ids) @ table``, as the flax module
+    does: for the tiny vocabularies here (atom types) the backward is a
+    matrix product and not a scatter-add, and an id outside
+    ``[0, num_embeddings)`` gives zeros. ``weight`` is the flax
+    ``embedding`` table."""
 
     def __init__(self, num_embeddings: int, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(num_embeddings, features))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        num = self.weight.shape[0]
-        inside = (ids >= 0) & (ids < num)
-        rows = self.weight[ids.clamp(0, num - 1)]
-        return rows * inside[..., None].to(rows.dtype)
+        classes = torch.arange(self.weight.shape[0], device=ids.device)
+        onehot = (ids[..., None] == classes).to(self.weight.dtype)
+        return onehot @ self.weight
 
 
 class NodeEncoder(nn.Module):
@@ -82,3 +83,24 @@ class AttentionReadout(nn.Module):
             out = torch.relu(lin(out))
         out = self.out_proj(out)
         return (gate * out * mask[..., None]).sum(1)
+
+
+class NodeHead(nn.Module):
+    """Per-node classification head → ``[B, N, C]`` logits: the hidden
+    stack of ``AttentionReadout`` without the pooling; padded nodes get
+    zero logits."""
+
+    def __init__(self, in_dim: int, num_task: int, output_hidden_dim: Sequence[int] = ()):
+        super().__init__()
+        hidden = []
+        for d in output_hidden_dim:
+            hidden.append(nn.Linear(in_dim, d))
+            in_dim = d
+        self.out_hidden = nn.ModuleList(hidden)
+        self.node_proj = nn.Linear(in_dim, num_task)
+
+    def forward(self, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        out = h
+        for lin in self.out_hidden:
+            out = torch.relu(lin(out))
+        return self.node_proj(out) * mask[..., None]

@@ -1,8 +1,7 @@
 """LanczosNet: multi-scale spectral graph convolution (arXiv:1901.01484).
 
-Counterpart of ``lanczosnet_tpu/models/lanczos_net.py``, fused path
-only (N ≤ 128). Per layer the propagation channels are, in this
-(c-major) order:
+Counterpart of ``lanczosnet_tpu/models/lanczos_net.py``. Per layer the
+propagation channels are, in this (c-major) order:
 
 - short scales ``S^t`` for ``t`` in ``short_diffusion_dist``, the exact
   powers of the channel-0 operator, formed once per forward;
@@ -12,8 +11,13 @@ only (N ≤ 128). Per layer the propagation channels are, in this
   plain power ``D^t``;
 - one-hop per-edge-type operators, channels ``1..E`` of the stack.
 
-The layer is ``Linear([h ‖ channels @ h])`` → ReLU → Dropout → mask,
-and the gated attention readout follows the last layer.
+The layer is ``Linear([h ‖ channels @ h])`` → ReLU → Dropout → mask.
+Up to 128 padded nodes the channels are formed as explicit ``[N, N]``
+matrices and applied in one stacked product (the fused path); above,
+each is applied in factored form (``ops/poly.py``, ``ops/spectral.py``)
+and no ``[N, N]`` matrix beyond S itself is formed. The gated attention
+readout (``task: graph``) or the per-node head (``task: node``) follows
+the last layer.
 """
 
 from __future__ import annotations
@@ -25,10 +29,19 @@ import torch
 from torch import nn
 
 from lanczosnet_torch.core.graph_batch import GraphBatch
-from lanczosnet_torch.models.base import AttentionReadout, NodeEncoder, flatten_feature_stack
+from lanczosnet_torch.models.base import (
+    AttentionReadout,
+    NodeEncoder,
+    NodeHead,
+    edge_message_concat,
+    flatten_feature_stack,
+)
+from lanczosnet_torch.ops.poly import diffusion_features_at
+from lanczosnet_torch.ops.spectral import long_scale_features
 
-# Above this many padded nodes the JAX model switches to its factored
-# low-rank path, which is not ported yet (ROADMAP A3).
+# Above this many padded nodes forming the long-scale matrices costs
+# more than applying them in factored form (S·N²·K against K·N·F·(1+S)
+# multiply-adds), so larger graphs take the factored path.
 FUSED_N_MAX = 128
 
 
@@ -122,11 +135,11 @@ def spectral_layer_channels(
 
 
 class LanczosNet(nn.Module):
-    """LanczosNet over a ``GraphBatch`` carrying Ritz pairs → ``[B, T]``.
+    """LanczosNet over a ``GraphBatch`` carrying Ritz pairs → ``[B, T]``
+    (``task="graph"``) or per-node logits ``[B, N, T]`` (``task="node"``).
 
-    float32, graph task, fused path only. ``num_edge_type`` and
-    ``node_feat_dim`` fix the layer widths that flax infers from the
-    first batch.
+    float32. ``num_edge_type`` and ``node_feat_dim`` fix the layer widths
+    that flax infers from the first batch.
     """
 
     def __init__(
@@ -149,12 +162,14 @@ class LanczosNet(nn.Module):
         dtype: str | None = None,
     ):
         super().__init__()
-        if task != "graph":
-            raise NotImplementedError(f"task={task!r}: node heads are ROADMAP A9")
+        if task not in ("graph", "node"):
+            raise ValueError(f"task={task!r} must be 'graph' or 'node'")
         if sum_dense:
-            raise NotImplementedError("model.sum_dense is ROADMAP A3")
+            raise NotImplementedError("model.sum_dense is not ported yet (ROADMAP A3)")
         if dtype is not None and str(dtype) not in ("float32", "f32"):
-            raise NotImplementedError(f"model.dtype={dtype!r}: only float32 is ported (ROADMAP A3)")
+            raise NotImplementedError(
+                f"model.dtype={dtype!r}: only float32 is ported so far (ROADMAP A3)"
+            )
         self.short_dists = tuple(int(t) for t in short_diffusion_dist)
         self.long_dists = tuple(int(t) for t in long_diffusion_dist)
         self.num_eig_vec = int(num_eig_vec)
@@ -173,7 +188,8 @@ class LanczosNet(nn.Module):
             d_in = dim
         self.layers = nn.ModuleList(layers)
         self.dropout = nn.Dropout(dropout)
-        self.readout = AttentionReadout(d_in, num_task, output_hidden_dim)
+        head = NodeHead if task == "node" else AttentionReadout
+        self.readout = head(d_in, num_task, output_hidden_dim)
 
     @classmethod
     def from_config(cls, cfg: dict) -> "LanczosNet":
@@ -206,8 +222,10 @@ class LanczosNet(nn.Module):
         def normal_(p: torch.Tensor, fan_in: int) -> None:
             p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
 
+        # flax's variance_scaling(fan_in, out_axis=0) on the [num_atom,
+        # features] table takes the feature width as fan_in
         emb = self.encoder.atom_embed.weight
-        normal_(emb, emb.shape[0])
+        normal_(emb, emb.shape[1])
         bank = self.spectral_filters
         if bank is not None and bank.mlp:
             normal_(bank.w1, bank.w1.shape[-2])
@@ -222,31 +240,41 @@ class LanczosNet(nn.Module):
     def forward(self, batch: GraphBatch) -> torch.Tensor:
         if batch.ritz_val is None or batch.ritz_vec is None:
             raise ValueError("LanczosNet needs the batch's Ritz pairs (ritz_val/ritz_vec)")
-        n = batch.n_max
-        if n > FUSED_N_MAX:
-            raise NotImplementedError(
-                f"n={n} > {FUSED_N_MAX}: the factored large-graph path is ROADMAP A3"
-            )
+        h = self.encoder(batch.atom_type, batch.node_feat, batch.mask)
+        return self.propagate(batch, h, batch.ops[:, 0], batch.ritz_val, batch.ritz_vec)
+
+    def propagate(
+        self, batch: GraphBatch, h: torch.Tensor, s_op: torch.Tensor,
+        ritz_val: torch.Tensor, ritz_vec: torch.Tensor,
+    ) -> torch.Tensor:
+        """The layer loop and the head on node states ``h [B,N,F]``, with
+        ``s_op [B,N,N]`` driving the short scales and the Ritz pairs the
+        long ones."""
         if batch.num_ops - 1 != self.num_edge_type:
             raise ValueError(
                 f"batch has {batch.num_ops - 1} edge-type operators, model "
                 f"was built for num_edge_type={self.num_edge_type}"
             )
         mask = batch.mask
-        h = self.encoder(batch.atom_type, batch.node_feat, mask)
-        s_op = batch.ops[:, 0]
-        filt_bank = (
-            self.spectral_filters(batch.ritz_val)
-            if self.spectral_filters is not None else None
-        )
-        short_ops = operator_powers(s_op, self.short_dists) if self.short_dists else None
+        fused = batch.n_max <= FUSED_N_MAX
+        filt_bank = self.spectral_filters(ritz_val) if self.spectral_filters is not None else None
+        short_ops = operator_powers(s_op, self.short_dists) if fused and self.short_dists else None
         edge_ops = batch.ops[:, 1:] if batch.num_ops > 1 else None
         for li, layer in enumerate(self.layers):
             filt = filt_bank[:, li] if filt_bank is not None else None
-            if short_ops is not None or filt is not None or edge_ops is not None:
-                prop = spectral_layer_channels(h, short_ops, batch.ritz_vec, filt, edge_ops)
-                h = torch.cat([h, prop], dim=-1)
-            h = torch.relu(layer(h))
+            parts = [h]
+            if fused:
+                if short_ops is not None or filt is not None or edge_ops is not None:
+                    parts.append(spectral_layer_channels(h, short_ops, ritz_vec, filt, edge_ops))
+            else:
+                if self.short_dists:
+                    short = diffusion_features_at(s_op, h, self.short_dists)
+                    parts.append(flatten_feature_stack(short))
+                if filt is not None:
+                    parts.append(flatten_feature_stack(long_scale_features(ritz_vec, filt, h)))
+                if edge_ops is not None:
+                    parts.append(edge_message_concat(edge_ops, h))
+            h = torch.relu(layer(torch.cat(parts, dim=-1) if len(parts) > 1 else h))
             h = self.dropout(h)
             h = h * mask[..., None]
         return self.readout(h, mask)

@@ -20,11 +20,31 @@ on the order of summation; two orders part by O(1) in Q from that step
 on (the JAX package's own Pallas kernel and scan do, on 64 such graphs).
 Sums written out term by term also keep the recursion in float32
 whatever the TF32 flags say; it lives on orthogonality.
+
+``lanczos_tridiag_resid_stream`` is the plain version of the streamed
+kernel in ``csrc/lanczos_stream.cu`` for graphs of more than 128 nodes,
+where a strict index-order sum over thousands of terms would be a chain
+too long for kernel and plain version alike. Both take every sum over
+the node index in chunks: ``STREAM_CHUNK`` consecutive indices summed
+in index order from zero, then the chunk partials summed in chunk order
+from zero. Sums over the (at most 64) basis rows stay in index order.
+
+``lanczos_adjoint_bwd`` is the hand-derived reverse recursion that
+turns cotangents of (alphas, betas, q) into the cotangent of S from the
+residuals either forward leaves; ``LanczosTridiag`` in
+``ops/lanczos_cuda.py`` is the ``autograd.Function`` that joins them.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from lanczosnet_torch.ops.precision import f32_matmul
+
+# Chunk length of the streamed kernel's order of summation; equal to
+# kChunk in csrc/lanczos_stream.cu, the same for every N.
+STREAM_CHUNK = 64
 
 
 def _dot_rows(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -108,6 +128,156 @@ def lanczos_tridiag_resid(
             q_buf[:, j + 1] = q_next
         beta_prev, q_prev = beta * valid, q_next
     return alphas, betas, q_buf, p1s, p2s, w4s
+
+
+def _chunk_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum ``x`` over ``dim`` (non-negative, its length a multiple of
+    ``STREAM_CHUNK``) in the streamed kernel's order: each chunk of
+    consecutive indices in index order, then the chunks in chunk order."""
+    chunks = x.shape[dim] // STREAM_CHUNK
+    x = x.unflatten(dim, (chunks, STREAM_CHUNK))
+    acc = torch.zeros_like(x.select(dim + 1, 0))
+    for t in range(STREAM_CHUNK):
+        acc = acc + x.select(dim + 1, t)
+    total = torch.zeros_like(acc.select(dim, 0))
+    for c in range(chunks):
+        total = total + acc.select(dim, c)
+    return total
+
+
+def lanczos_tridiag_resid_stream(
+    s: torch.Tensor, mask: torch.Tensor, k: int, eps: float = 1e-6
+) -> tuple[torch.Tensor, ...]:
+    """The contract of ``lanczos_tridiag_resid`` in the order of
+    summation of ``csrc/lanczos_stream.cu``, for large graphs.
+
+    Differences from ``lanczos_tridiag_resid``, all shared with the
+    kernel: sums over the node index are chunked (``_chunk_sum``); the
+    matvec is ``w_i = Σ_r q_r · S[r, i]``, that is qᵀS, which reads S
+    along its rows and equals S q only for a symmetric S (the TPU
+    kernel makes the same assumption); the CGS passes project against
+    rows 0..j of the basis only, the later rows being zero, and p1/p2
+    are zero there. N is padded with zeros to a multiple of the chunk
+    inside; outputs come back at the caller's N.
+    """
+    s = s.to(torch.float32)
+    b, n, _ = s.shape
+    pad = -n % STREAM_CHUNK
+    q0 = F.pad(lanczos_start_vector(mask.to(torch.float32), eps), (0, pad))
+    s = F.pad(s, (0, pad, 0, pad))
+    n_pad = n + pad
+    q_buf = s.new_zeros((b, k, n_pad))
+    q_buf[:, 0] = q0
+    alphas = s.new_zeros((b, k))
+    betas = s.new_zeros((b, k))
+    p1s = s.new_zeros((b, k, k))
+    p2s = s.new_zeros((b, k, k))
+    w4s = s.new_zeros((b, k, n_pad))
+    beta_prev = s.new_zeros((b, 1))
+    q_prev = s.new_zeros((b, n_pad))
+    for j in range(k):
+        q_j = q_buf[:, j].clone()
+        rows = q_buf[:, : j + 1]
+        w = _chunk_sum(s * q_j[:, :, None], 1)
+        alpha = _chunk_sum(q_j * w, 1)[:, None]
+        w = w - alpha * q_j - beta_prev * q_prev
+        p1 = _chunk_sum(rows * w[:, None, :], 2)
+        w = w - _combine_rows(rows, p1)
+        p2 = _chunk_sum(rows * w[:, None, :], 2)
+        w = w - _combine_rows(rows, p2)
+        beta = torch.sqrt(torch.clamp_min(_chunk_sum(w * w, 1)[:, None], eps * eps))
+        valid = (beta > eps).to(torch.float32)
+        q_next = valid * w / beta
+        alphas[:, j] = alpha[:, 0]
+        betas[:, j] = (beta * valid)[:, 0]
+        p1s[:, j, : j + 1] = p1
+        p2s[:, j, : j + 1] = p2
+        w4s[:, j] = w
+        if j + 1 < k:
+            q_buf[:, j + 1] = q_next
+        beta_prev, q_prev = beta * valid, q_next
+    return alphas, betas, q_buf[:, :, :n].contiguous(), p1s, p2s, w4s[:, :, :n].contiguous()
+
+
+def lanczos_adjoint_bwd(
+    s: torch.Tensor, alphas: torch.Tensor, betas_full: torch.Tensor, q: torch.Tensor,
+    p1: torch.Tensor, p2: torch.Tensor, w4: torch.Tensor,
+    bar_alphas: torch.Tensor, bar_betas_full: torch.Tensor, bar_q: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Reverse recursion, batched: cotangents of (alphas ``[B,k]``,
+    betas_full ``[B,k]``, q ``[B,k,N]``) → ``bar_s [B,N,N]``.
+
+    Every primal of a step is rebuilt from the residuals (w3 = w4 +
+    Qᵀp2, w2 = w3 + Qᵀp1, w1 = w2 + α q_j + β_prev q_prev), so no
+    forward matvec is replayed; each step costs one product with Sᵀ,
+    and the operator cotangent is one product ``bar_W1ᵀ Q`` at the end.
+    It is not symmetrised. The forward's carry quirk is rebuilt as it
+    ran: the q_prev of step j is q_j. A step that broke down (its
+    betas_full is 0) passes only the α path on, as autograd through the
+    clamp would. Products run in float32 under any TF32 flag.
+    """
+    b, k, n = q.shape
+    s = s.to(torch.float32)
+    s_t = s.transpose(1, 2)
+    bar_qbuf = bar_q.clone()
+    bar_beta_c = s.new_zeros((b, 1))
+    bar_qprev_c = s.new_zeros((b, n))
+    bar_w1s = s.new_zeros((b, k, n))
+
+    def dot(x, y):
+        return (x * y).sum(-1, keepdim=True)
+
+    with f32_matmul():
+        # What does not depend on the reverse carry, for all steps at once.
+        # Step j saw rows 0..j of the basis, hence the lower triangles.
+        valid = (betas_full > 0).to(s.dtype)
+        betas = torch.where(betas_full > 0, betas_full, torch.full_like(betas_full, eps))
+        beta_prevs = F.pad(betas_full[:, :-1], (1, 0))
+        tril = torch.ones((k, k), dtype=s.dtype, device=s.device).tril()
+        w3s = w4 + (p2 * tril) @ q
+        w2s = w3s + (p1 * tril) @ q
+        # the carry quirk: the q_prev of step j is q_j; β_prev is 0 at j = 0
+        w1s = w2s + alphas[..., None] * q + beta_prevs[..., None] * q
+        for j in reversed(range(k)):
+            alpha, beta, beta_prev = alphas[:, j, None], betas[:, j, None], beta_prevs[:, j, None]
+            valid_j = valid[:, j, None]
+            q_j = q_prev = q[:, j]
+            qm = q[:, : j + 1]  # the basis as step j saw it
+            qm_t = qm.transpose(1, 2)
+            p1_j = p1[:, j, : j + 1, None]
+            p2_j = p2[:, j, : j + 1, None]
+            w4_j, w3, w2, w1 = w4[:, j], w3s[:, j], w2s[:, j], w1s[:, j]
+            bar_qnext = bar_qprev_c + bar_qbuf[:, j + 1] if j + 1 < k else bar_qprev_c
+            bar_beta_out = bar_betas_full[:, j, None] + bar_beta_c
+            # q_next = valid·w4/β ; β = sqrt(max(w4·w4, ε²)) ; out = valid·β
+            bar_beta_raw = valid_j * (bar_beta_out - dot(w4_j, bar_qnext) / (beta * beta))
+            bar_w4 = valid_j * (bar_qnext / beta + bar_beta_raw * w4_j / beta)
+            # CGS pass 2: w4 = w3 − Qᵀp2, p2 = Q w3
+            bar_p2 = -(qm @ bar_w4[..., None])
+            bar_w3 = bar_w4 + (qm_t @ bar_p2)[..., 0]
+            # CGS pass 1: w3 = w2 − Qᵀp1, p1 = Q w2
+            bar_p1 = -(qm @ bar_w3[..., None])
+            bar_w2 = bar_w3 + (qm_t @ bar_p1)[..., 0]
+            # w2 = w1 − α q_j − β_prev q_prev ; α = q_j · w1 ; w1 = S q_j
+            bar_alpha = bar_alphas[:, j, None] - dot(q_j, bar_w2)
+            bar_beta_c = -dot(q_prev, bar_w2)
+            bar_qprev_c = -beta_prev * bar_w2
+            bar_w1 = bar_w2 + bar_alpha * q_j
+            bar_qj = -alpha * bar_w2 + bar_alpha * w1 + (s_t @ bar_w1[..., None])[..., 0]
+            # fold the reads back into the basis cotangent: row j+1 was
+            # consumed; rows 0..j gain the cotangent of the basis the two
+            # CGS passes read, outer(bar_p2, w3) − outer(p2, bar_w4) +
+            # outer(bar_p1, w2) − outer(p1, bar_w3), as one product
+            if j + 1 < k:
+                bar_qbuf[:, j + 1] = 0.0
+            bar_qbuf[:, : j + 1].baddbmm_(
+                torch.cat([bar_p2, -p2_j, bar_p1, -p1_j], dim=2),
+                torch.stack([w3, bar_w4, w2, bar_w3], dim=1),
+            )
+            bar_qbuf[:, j] += bar_qj
+            bar_w1s[:, j] = bar_w1
+        return bar_w1s.transpose(1, 2) @ q  # Σ_j outer(bar_w1_j, q_j)
 
 
 def tridiag_matrix(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:

@@ -63,10 +63,10 @@ def _linear(out: dict, leaves: _Leaves, prefix: str, *path: str) -> None:
     out[f"{prefix}.bias"] = leaves.take(*path, "bias")
 
 
-def lanczos_net_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The ``params`` of a flax ``LanczosNet`` (numpy leaves) → the
-    ``state_dict`` of ``lanczosnet_torch.models.LanczosNet``."""
-    leaves = _Leaves(params)
+def _spectral_net_state_dict(leaves: _Leaves) -> dict[str, torch.Tensor]:
+    """The leaves LanczosNet and AdaLanczosNet share: the embedding, the
+    filter bank, the layers and the head (``AttentionReadout_0`` for
+    ``task: graph``, ``NodeHead_0`` for ``task: node``)."""
     out = {"encoder.atom_embed.weight": leaves.take("NodeEncoder_0", "atom_embed", "embedding")}
     if leaves.has("spectral_filters"):
         for name in ("w1", "b1", "w2", "b2"):
@@ -75,12 +75,34 @@ def lanczos_net_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]
     while leaves.has(f"layer_{li}"):
         _linear(out, leaves, f"layers.{li}", f"layer_{li}")
         li += 1
-    readout = "AttentionReadout_0"
-    _linear(out, leaves, "readout.att_gate", readout, "att_gate")
+    node = leaves.has("NodeHead_0")
+    head = "NodeHead_0" if node else "AttentionReadout_0"
+    if not node:
+        _linear(out, leaves, "readout.att_gate", head, "att_gate")
     hi = 0
-    while leaves.has(readout, f"out_hidden_{hi}"):
-        _linear(out, leaves, f"readout.out_hidden.{hi}", readout, f"out_hidden_{hi}")
+    while leaves.has(head, f"out_hidden_{hi}"):
+        _linear(out, leaves, f"readout.out_hidden.{hi}", head, f"out_hidden_{hi}")
         hi += 1
-    _linear(out, leaves, "readout.out_proj", readout, "out_proj")
+    last = "node_proj" if node else "out_proj"
+    _linear(out, leaves, f"readout.{last}", head, last)
+    return out
+
+
+def lanczos_net_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``params`` of a flax ``LanczosNet`` (numpy leaves), with
+    either head → the ``state_dict`` of
+    ``lanczosnet_torch.models.LanczosNet``."""
+    leaves = _Leaves(params)
+    out = _spectral_net_state_dict(leaves)
+    leaves.check_all_used()
+    return out
+
+
+def ada_lanczos_net_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``params`` of a flax ``AdaLanczosNet`` (numpy leaves) → the
+    ``state_dict`` of ``lanczosnet_torch.models.AdaLanczosNet``."""
+    leaves = _Leaves(params)
+    out = _spectral_net_state_dict(leaves)
+    _linear(out, leaves, "kernel_embed", "kernel_embed")
     leaves.check_all_used()
     return out

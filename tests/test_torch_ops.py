@@ -142,7 +142,7 @@ def test_dispatch_sends_cpu_tensors_to_plain_version(monkeypatch):
         ((2, 8, 7), (2, 8), 2, r"\[B, N, N\]"),
         ((2, 8, 8), (2, 7), 2, "mask"),
         ((0, 8, 8), (0, 8), 2, "empty"),
-        ((1, 129, 129), (1, 129), 20, "B2"),
+        ((1, 129, 129), (1, 129), 65, "k=65 > 64"),
         ((2, 8, 8), (2, 8), 0, "k=0"),
         ((2, 8, 8), (2, 8), 9, "k=9"),
     ],
