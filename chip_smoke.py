@@ -12,20 +12,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    report).
 3. kernel: the shared-memory Lanczos kernel (N ≤ 128) against its plain
    PyTorch version on the card, all six outputs within 1e-4 and the
-   same breakdown step, on masked random operators, an all-zero graph,
-   QM8-like operators at B=64, N=32, K=20, and N=128; then both timed
-   with CUDA events at B=64 and B=256.
+   same breakdown step, on masked random operators at sizes that reach
+   each of its three instantiations (sums padded to 32, 64, 128) at and
+   beside their edges, an all-zero graph, and QM8-like operators at
+   B=64, N=32, K=20; then both timed with CUDA events at B=64 and B=256.
 4. serve: the flagship LanczosNet of ``configs/qm8_lanczos_net.yaml``
    at full width, weights drawn from a seeded generator, behind
    ``Predictor`` and ``MicroBatcher``, answers QM8-like requests from
    several client threads; every answer is finite and matches the same
    model fed the plain version's Ritz pairs on the card (1e-4); the
    kernel's launch count must grow during this run.
-5. stream_kernel: the streamed Lanczos kernel (N > 128) against its
-   plain version on the card, the same contract, on masked random
-   operators at N=300, a 130-node graph with 3 real nodes, an all-zero
-   graph at N=256 and the learned operator of the Cora-sized
-   AdaLanczosNet (B=1, N=2708, K=20); then both timed at that shape.
+5. barrier and stream_kernel: what one grid barrier of the streamed
+   kernel's cooperative launch costs (a launch of barriers and nothing
+   else); then the streamed Lanczos kernel (N > 128) against its plain
+   version on the card, the same contract, on masked random operators at
+   N=300, a 130-node graph with 3 real nodes, an all-zero graph at
+   N=256, K=64 at N=129, batches of graphs of different real sizes that
+   need several chunks a block and several launches, N=16384, and the
+   learned operator of the Cora-sized AdaLanczosNet (B=1, N=2708, K=20);
+   then both timed at that shape, and the kernel compared once more
+   after the timing loop, so that state left from call to call would
+   show.
 6. citation_train: ``CitationRunner`` trains the AdaLanczosNet of
    ``configs/cora_ada_lanczos_net.yaml`` at full width on a synthetic
    Cora-sized graph (N=2708, F=1433, 7 classes) for a few epochs and
@@ -34,7 +41,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    below the first's, and eval-mode logits and the ``kernel_embed``
    gradient agree between the kernel forward and the plain forward
    (1e-4); step times and the stage split are printed.
-7. kernels: one line per ported kernel, its error, times and launches.
+7. kernels: one line per ported kernel, its error, its time, its bound,
+   its latency floor and its launches, all of this run.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -139,6 +147,16 @@ NUM_CLIENTS = 16
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# a dependent float32 add issues 4 cycles after the one it waits for
+FADD_CHAIN_CYCLES = 4
+# Not of this run: the kernels' times before their redesign, as PERF.md
+# section 6 records them (NVIDIA H100 80GB HBM3, 700.00 W; CUDA events, this
+# script as it was then). Printed beside the ``kernel_time`` lines only, and
+# named as recorded; the ``kernels`` line holds this run's numbers alone.
+RECORDED_MS_BEFORE_REDESIGN = {
+    "lanczos_tridiag": {64: 0.05918, 256: 0.05936},
+    "lanczos_stream": 1.1302,
+}
 
 
 class SmokeFailure(SystemExit):
@@ -150,12 +168,35 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit", fmt: str = "csv,noheader") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def latency_floor_ms(links: int, launch_ms: float) -> dict:
+    """The time the longest chain of dependent float32 adds of one call
+    takes at the card's highest SM clock, plus one launch: what no
+    schedule that keeps the order of summation can go below."""
+    mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    chain_ms = links * FADD_CHAIN_CYCLES / (mhz * 1e3)
+    return dict(latency_floor_ms=chain_ms + launch_ms, chain_links=links,
+                sm_clock_mhz=mhz, launch_ms=launch_ms)
+
+
+def tridiag_links(n: int, k: int) -> int:
+    """Dependent adds on the critical path of the shared-memory kernel:
+    a step is five sums over the padded node index one after the other
+    (matvec, alpha, p1, p2, beta^2) and two combines over rows 0..j."""
+    return k * 5 * lanczos_cuda.tridiag_padded_n(n) + k * (k + 1)
+
+
+def stream_links(n: int, k: int) -> int:
+    """The same for the streamed kernel: each of the five sums is a chain
+    of 64 inside a chunk, then one over the ceil(n/64) chunk partials."""
+    return k * 5 * (64 + -(-n // 64)) + k * (k + 1)
 
 
 def cuda_ms(fn, iters: int, warmup: int) -> float:
@@ -260,12 +301,16 @@ def phase_build() -> None:
         emit("build", kernel=b.name, seconds=b.seconds, library=b.path.name, nvcc_log=log)
 
 
-def phase_kernel(dev) -> dict:
+def phase_kernel(dev, launch_ms: float) -> dict:
     rng = np.random.default_rng(0)
     cases = {}
     for name, (b, n, counts, k) in {
         "spd-n12-k6": (5, 12, [12, 9, 4, 1, 12], 6),
         "spd-n12-k12": (5, 12, [12, 9, 4, 1, 12], 12),
+        "spd-n32-k32": (3, 32, [32, 20, 2], 32),
+        "spd-n33-k33": (3, 33, [33, 30, 2], 33),
+        "spd-n64-k20": (2, 64, [64, 40], 20),
+        "spd-n65-k65": (2, 65, [65, 3], 65),
         "spd-n128-k20": (8, 128, [128, 125, 100, 64, 33, 4, 1, 128], 20),
         "spd-n128-k128": (2, 128, [128, 90], 128),
     }.items():
@@ -293,12 +338,21 @@ def phase_kernel(dev) -> dict:
         q0 = lanczos_start_vector(mask, EPS).contiguous()
         outs = tuple(torch.empty(shape, device=dev) for shape in
                      ((b, k), (b, k), (b, k, n), (b, k, k), (b, k, k), (b, k, n)))
+        before = lanczos_cuda.launches.count
+        lanczos_cuda.launch(s, q0, outs, k, EPS)
+        device_launches = lanczos_cuda.launches.count - before
         kernel_ms = cuda_ms(lambda: lanczos_cuda.launch(s, q0, outs, k, EPS), 200, 20)
+        # one step instead of K: below this the loop of launches reads the
+        # host's launch rate, not the kernel
+        one_step_ms = cuda_ms(lambda: lanczos_cuda.launch(s, q0, outs, 1, EPS), 200, 20)
         plain_ms = cuda_ms(lambda: lanczos_tridiag_resid(s, mask, k, EPS), 20, 3)
         bound_ms, bound_by, nbytes, flops = lanczos_bound(b, n, k)
         timing[b] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, bytes=nbytes, flops=flops)
-        emit("kernel_time", batch=b, n=n, k=k, **timing[b])
+                         bound_by=bound_by, bytes=nbytes, flops=flops, one_step_ms=one_step_ms,
+                         device_launches_per_call=device_launches,
+                         **latency_floor_ms(tridiag_links(n, k), launch_ms))
+        emit("kernel_time", batch=b, n=n, k=k, **timing[b],
+             recorded_ms_before_redesign=RECORDED_MS_BEFORE_REDESIGN["lanczos_tridiag"][b])
     return {"max_abs_err": worst, "timing": timing}
 
 
@@ -423,36 +477,109 @@ def citation_config(save_dir: str) -> dict:
     }
 
 
-def phase_stream_kernel(dev, runner: CitationRunner) -> dict:
+def phase_barrier(dev) -> dict:
+    """What a grid barrier of the streamed kernel's cooperative launch
+    costs: launches of 1200 barriers against launches of none, back to
+    back as the kernels are timed, on the grid the citation shape gets
+    and on one block for every SM; and what an empty launch of the
+    serving kernel's shape (64 blocks of one warp) costs."""
+    k = CORA_ADA_MODEL["num_eig_vec"]
+    plan = lanczos_cuda.stream_plan(1, CORA_SHAPE[0], k, dev.index)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    count = 1200
+    threads = lanczos_cuda.STREAM_THREADS
+
+    def probe_ms(grid, threads, barriers):
+        return cuda_ms(lambda: lanczos_cuda.launch_barrier_probe(grid, threads, barriers, dev), 100, 10)
+
+    out = {}
+    for grid in sorted({plan.grid, sms}):
+        empty = probe_ms(grid, threads, 0)
+        full = probe_ms(grid, threads, count)
+        out[grid] = dict(grid=grid, threads=threads, barriers=count,
+                         empty_launch_ms=empty, barrier_us=(full - empty) / count * 1e3)
+        emit("barrier", **out[grid])
+    small = dict(grid=SERVE_BATCH, threads=32, empty_launch_ms=probe_ms(SERVE_BATCH, 32, 0))
+    emit("empty_launch", **small)
+    return {**out[plan.grid], "small_launch_ms": small["empty_launch_ms"]}
+
+
+def stream_cases(dev, runner: CitationRunner) -> dict:
     rng = np.random.default_rng(7)
     cases = {}
+
+    def put(name, s, mask, k):
+        cases[name] = (torch.as_tensor(s).to(dev), torch.as_tensor(mask).to(dev), k)
+
     s, mask = spd_case(rng, 2, 300, [300, 200])
-    cases["spd-n300-k8"] = (torch.from_numpy(s * (1.0 / 3.0)).to(dev), torch.from_numpy(mask).to(dev), 8)
+    put("spd-n300-k8", s * (1.0 / 3.0), mask, 8)
     s, mask = spd_case(rng, 1, 130, [3])
-    cases["n130-3-real-nodes-k8"] = (torch.from_numpy(s).to(dev), torch.from_numpy(mask).to(dev), 8)
-    cases["zero-graph-n256-k6"] = (torch.zeros(2, 256, 256, device=dev), torch.ones(2, 256, device=dev), 6)
+    put("n130-3-real-nodes-k8", s, mask, 8)
+    put("zero-graph-n256-k6", torch.zeros(2, 256, 256), torch.ones(2, 256), 6)
+    s, mask = spd_case(rng, 2, 129, [129, 70])
+    put("spd-n129-k64", s * 0.5, mask, 64)
+    # 40 graphs of 9 chunks each and of different real sizes: more (graph,
+    # chunk) pairs than the card has SMs, so a block owns several
+    s, mask = spd_case(rng, 40, 520, [520 - 13 * i for i in range(40)])
+    put("b40-n520-k12-several-chunks-a-block", s * 0.2, mask, 12)
+    # 600 graphs at K=64: more pairs than fit the blocks' shared memory, so
+    # the graphs go in two launches
+    s, mask = spd_case(rng, 600, 160, [160 - (i % 158) for i in range(600)])
+    put("b600-n160-k64-two-launches", s * 0.4, mask, 64)
+    # the largest graph the kernel takes; S is 1.07 GB, made on the card
+    gen = torch.Generator(device=dev).manual_seed(11)
+    big = torch.randn(16384, 16384, device=dev, generator=gen) * 0.004
+    big = (0.5 * (big + big.T))[None].contiguous()
+    cases["spd-n16384-k3"] = (big, torch.ones(1, 16384, device=dev), 3)
     k = CORA_ADA_MODEL["num_eig_vec"]
     model, batch = runner.model.eval(), runner.batch
     with torch.no_grad():
         h = model.encoder(batch.atom_type, batch.node_feat, batch.mask)
         s_cora = model.learned_operator(h, batch).contiguous()
     cases["cora-learned-operator-n2708-k20"] = (s_cora, batch.mask, k)
+    return cases
 
+
+def phase_stream_kernel(dev, runner: CitationRunner, barrier: dict) -> dict:
+    cases = stream_cases(dev, runner)
     worst = 0.0
-    for name, (s, mask, kk) in cases.items():
+    plans = {}
+    for name in list(cases):
+        s, mask, kk = cases[name]
         before = lanczos_cuda.stream_launches.count
         got = lanczos_cuda.lanczos_tridiag_cuda_resid(s, mask, kk, EPS)
         torch.cuda.synchronize()
-        if lanczos_cuda.stream_launches.count != before + 1:
-            raise SmokeFailure(f"{name}: the wrapper did not launch the streamed kernel")
+        plans[name] = lanczos_cuda.stream_plan(s.shape[0], s.shape[1], kk, dev.index)
+        if lanczos_cuda.stream_launches.count != before + plans[name].launches:
+            raise SmokeFailure(f"{name}: the wrapper did not launch the streamed kernel "
+                               f"{plans[name].launches} time(s)")
         want = lanczos_cuda.lanczos_tridiag_cuda_resid(s, mask, kk, EPS, impl="plain")
         torch.cuda.synchronize()
+        emit("stream_plan", case=name, **vars(plans[name]))
         worst = max(worst, compare_outputs(name, s, kk, got, want))
+        if not name.startswith("cora"):
+            del cases[name], got, want  # the large cases give their memory back
+    if plans["b40-n520-k12-several-chunks-a-block"].slots < 2:
+        raise SmokeFailure("no case made a block own several chunks")
+    if plans["b600-n160-k64-two-launches"].launches < 2:
+        raise SmokeFailure("no case needed more than one launch")
 
+    s_cora, mask, k = cases["cora-learned-operator-n2708-k20"]
     b, n, _ = s_cora.shape
     q, part, *outs = lanczos_cuda.stream_buffers(b, n, k, dev)
-    q[:, 0] = lanczos_start_vector(batch.mask, EPS)
+    q[:, 0] = lanczos_start_vector(mask, EPS)
+    before = lanczos_cuda.stream_launches.count
+    lanczos_cuda.launch_stream(s_cora, q, part, tuple(outs), k, EPS)
+    device_launches = lanczos_cuda.stream_launches.count - before
     kernel_ms = cuda_ms(lambda: lanczos_cuda.launch_stream(s_cora, q, part, tuple(outs), k, EPS), 50, 5)
+    # what the 56 calls back to back left in the buffers, against the plain
+    # version: a barrier or scratch whose state leaked from call to call
+    # would show here
+    torch.cuda.synchronize()
+    alphas, betas, p1, p2, w4 = outs
+    want = lanczos_tridiag_resid_stream(s_cora, mask, k, EPS)
+    worst = max(worst, compare_outputs("cora-after-the-timing-loop", s_cora, k,
+                                       (alphas, betas, q, p1, p2, w4), want))
     # the same with the 50 MB L2 cache overwritten before each call
     flush = torch.empty(64 * 1024 * 1024, device=dev)
     cold = []
@@ -464,11 +591,18 @@ def phase_stream_kernel(dev, runner: CitationRunner) -> dict:
         end.record()
         end.synchronize()
         cold.append(start.elapsed_time(end))
-    plain_ms = cuda_ms(lambda: lanczos_tridiag_resid_stream(s_cora, batch.mask, k, EPS), 3, 1)
+    plain_ms = cuda_ms(lambda: lanczos_tridiag_resid_stream(s_cora, mask, k, EPS), 3, 1)
+    plan = plans["cora-learned-operator-n2708-k20"]
+    barriers = 6 * k - 1  # the kernel's schedule: six a step, none after the last
     timing = dict(kernel_ms=kernel_ms, kernel_ms_l2_flushed=float(np.median(cold)),
-                  plain_ms=plain_ms, device_launches_per_call=2 * k,
+                  plain_ms=plain_ms, device_launches_per_call=device_launches,
+                  grid=plan.grid, threads=lanczos_cuda.STREAM_THREADS,
+                  barriers_per_call=barriers, barrier_us=barrier["barrier_us"],
+                  barriers_ms=barriers * barrier["barrier_us"] * 1e-3,
+                  **latency_floor_ms(stream_links(n, k), barrier["empty_launch_ms"]),
                   **lanczos_stream_bound(b, n, k))
-    emit("kernel_time", kernel="lanczos_stream", batch=b, n=n, k=k, **timing)
+    emit("kernel_time", kernel="lanczos_stream", batch=b, n=n, k=k, **timing,
+         recorded_ms_before_redesign=RECORDED_MS_BEFORE_REDESIGN["lanczos_stream"])
     return {"max_abs_err": worst, "timing": timing}
 
 
@@ -573,6 +707,7 @@ def phase_citation_train(runner: CitationRunner, smi: str) -> int:
     if shape != CORA_SHAPE:
         raise SmokeFailure(f"the citation graph is {shape}, not Cora-sized {CORA_SHAPE}")
 
+    torch.cuda.reset_peak_memory_stats()  # the kernel cases before held a 1 GB operator
     lanczos_cuda.launches.reset()
     lanczos_cuda.stream_launches.reset()
     t0 = time.perf_counter()
@@ -647,11 +782,12 @@ def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    kern = phase_kernel(dev)
+    barrier = phase_barrier(dev)
+    kern = phase_kernel(dev, barrier["small_launch_ms"])
     launches = phase_serve(dev, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cora_") as run_dir:
         runner = CitationRunner(citation_config(run_dir), device=dev)
-        stream = phase_stream_kernel(dev, runner)
+        stream = phase_stream_kernel(dev, runner, barrier)
         stream_launches = phase_citation_train(runner, smi)
     t64, t256 = kern["timing"][SERVE_BATCH], kern["timing"][256]
     ts = stream["timing"]
@@ -671,6 +807,8 @@ def main() -> None:
         "library_ms": None,
         "library": no_library,
         "shape": f"B={SERVE_BATCH} N=32 K=20",
+        "latency_floor_ms": t64["latency_floor_ms"],
+        "device_launches_per_call": t64["device_launches_per_call"],
         "b256": t256,
     }, {
         "name": "lanczos_stream",
@@ -687,7 +825,11 @@ def main() -> None:
         "library_ms": None,
         "library": no_library,
         "shape": "B=1 N=2708 K=20",
-        "launches_counts": "calls of the wrapper; each is 2K device launches",
+        "latency_floor_ms": ts["latency_floor_ms"],
+        "device_launches_per_call": ts["device_launches_per_call"],
+        "barrier_us": ts["barrier_us"],
+        "barriers_per_call": ts["barriers_per_call"],
+        "launches_counts": "cooperative launches on the device",
         "kernel_ms_l2_flushed": ts["kernel_ms_l2_flushed"],
         "s_read_k_times_ms": ts["s_read_k_times_ms"],
     }]}), flush=True)

@@ -14,30 +14,49 @@
 // 3.35 TB/s; it does K*2N^2 = 293 MFLOP of float32 work: 0.004 ms at
 // 67 TFLOP/s. So bytes bound it. But step j+1 needs q_{j+1}, which needs
 // all of S*q_j, so S is read K times (587 MB, 0.175 ms from device memory)
-// unless it stays in the 50 MB L2 cache between steps; and each step ends
-// in a chain of dependent reductions (alpha, two CGS passes, beta) that
-// one block per graph walks alone.
+// unless it stays in the 50 MB L2 cache between steps. And the recursion
+// has a latency floor of its own: a step is a sequence of dependent sums
+// (the matvec, alpha, two CGS passes, beta^2), each a chain of 64 adds
+// inside a chunk and then ceil(N/64) adds across the chunks, and each sum
+// across chunks needs every chunk's partial, that is, the whole grid.
 //
-// What the design does about it. The TPU kernel walks a sequential grid
-// (graph, step, row block) and carries the accumulator in scratch memory;
-// here blocks run in parallel and nothing carries over, so a step is two
-// launches on the caller's stream and the launch boundary is the
-// grid-wide synchronization:
-//   1. lanczos_stream_matvec, grid (column tiles, row chunks, graphs): a
-//      thread owns one column i and one chunk of kChunk rows and writes
-//      part[g, c, i] = sum_{r in chunk c} q_j[r] * S[r, i]. A warp reads
-//      128 consecutive bytes of a row of S per load (coalesced), and with
-//      N/128 * N/64 blocks every SM streams. This is q^T S: it reads S
-//      along rows and equals S q only for a symmetric S, the assumption
-//      the TPU kernel makes for the same reason.
-//   2. lanczos_stream_finish, one block of 1024 threads per graph: adds
-//      the partials in chunk order, then alpha, the three-term update, two
-//      CGS passes against rows 0..j of Q (the later rows are zero and are
-//      skipped; p1/p2 are written as zero there), beta, the breakdown
-//      gate, and writes row j of the outputs and row j+1 of Q. w stays in
-//      shared memory; Q (K*N*4 B = 217 KB) is read from L2.
-// 2K launches a call; no cooperative launch, no grid-wide sync. S is only
-// ever read, so whatever part of it fits stays in L2 between steps.
+// What the design does about it: one persistent cooperative launch per
+// call (all blocks co-resident, one block of 1024 threads per SM), with a
+// grid-wide barrier between the phases of a step where the TPU kernel had
+// a sequential grid. The order of summation names the unit of parallelism,
+// the chunk of 64 consecutive node indices:
+//   - Block c owns chunk c of a graph for the whole call. It keeps
+//     w[chunk c] and its 64 columns of the basis Q, all K rows, in shared
+//     memory. Every chunk partial of alpha, of a CGS coefficient p[r] and of
+//     beta^2 is computed from shared memory by the block that owns the
+//     chunk, so the ceil(N/64) chains of a sum run on as many SMs at once.
+//     Only the partials cross the grid, through a scratch tensor; after the
+//     barrier every owner adds them in chunk order for itself, so all hold
+//     the same alpha, p[r] and beta bit for bit.
+//   - Inside a chain the operands are loaded and the products formed ahead
+//     of the adds (unrolled, independent), so a link costs one dependent
+//     add and not a load, a multiply and an add.
+//   - The matvec uses every block, owners or not: a team of 128 threads
+//     takes one (column tile, row chunk) unit, a thread one column i, and
+//     writes part[g, c, i] = sum_{r in chunk c} q_j[r] * S[r, i]. A warp
+//     reads 128 consecutive bytes of a row of S per load. This is q^T S: it
+//     reads S along rows and equals S q only for a symmetric S, the
+//     assumption the TPU kernel makes for the same reason. The owner of
+//     column chunk c then adds the partials of its 64 columns in chunk
+//     order.
+//   Phases of step j, each ended by a grid barrier (6 a step, 6K-1 a call):
+//     A  all blocks: matvec partials of q_j;
+//     B  owner: w from the partials; its partial of alpha;
+//     C  alpha; the three-term update; partials of the pass-1 coefficients;
+//     D  p1; w -= Q^T p1; partials of the pass-2 coefficients;
+//     E  p2; w -= Q^T p2; w4 written; its partial of beta^2;
+//     F  beta, the breakdown gate, q_{j+1} into shared memory and out.
+//   Where a launch has more (graph, chunk) pairs than blocks, a block owns
+//   several ("slots"); where even that does not fit shared memory, the
+//   graphs go in groups of one launch each. The host picks grid, slots and
+//   groups from the shape and the device (lanczos_cuda.py:plan_stream).
+//   Data that another block wrote during the launch is read past L1
+//   (__ldcg); S is only ever read and may take any path.
 //
 // Order of summation, shared with the plain version so that both break
 // down at the same step (where beta is rounding noise near eps, two orders
@@ -47,9 +66,10 @@
 // the CGS coefficients, beta^2) is taken in chunks: kChunk = 64
 // consecutive indices in index order starting from zero, then the chunk
 // partials in chunk order starting from zero; the last chunk is short
-// where N is not a multiple of 64 (the plain version pads with zeros,
-// which adds nothing). kChunk is the same for every N. A sum over basis
-// rows (at most kMaxK = 64 terms) is taken in index order.
+// where N is not a multiple of 64 (the plain version pads with zeros and
+// so does the owner's shared memory: adding +0 changes no sum). kChunk is
+// the same for every N. A sum over basis rows (at most kMaxK = 64 terms)
+// is taken in index order. Who walks a sum never changes this order.
 //
 // Points where it must not drift from the TPU kernel:
 // - the carry quirk: the q_prev entering step j is q_j itself (zero at
@@ -57,169 +77,311 @@
 //   (w - alpha*q_j) - beta_prev*q_j, as the plain version rounds it;
 // - breakdown: beta = sqrt(max(sum w^2, eps^2)), valid = beta > eps; the
 //   kernel writes beta*valid and q_{j+1} = valid*w/beta only if j+1 < K;
-//   w4 is w before normalization.
+//   w4 is w before normalization;
+// - the CGS passes project against rows 0..j of Q only (the later rows are
+//   zero and are skipped); p1/p2 are written as zero there.
 //
 // Build (lanczosnet_torch/ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // No --use_fast_math: it would change sqrtf, the division and denormals.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kChunk = 64;        // chunk length of the order of summation
 constexpr int kChunkShift = 6;    // log2(kChunk)
-constexpr int kMaxN = 16384;      // w and the chunk partials fit one block's shared memory
+constexpr int kMaxN = 16384;
 constexpr int kMaxK = 64;
-constexpr int kTile = 128;        // columns per matvec block; >= kChunk
-constexpr int kFinishThreads = 1024;
+constexpr int kTile = 128;        // columns per matvec unit; threads per team
+constexpr int kLd = kChunk + 1;   // row stride of a block's slice of Q: odd, so
+                                  // threads walking different rows hit different banks
+constexpr int kMaxThreads = 1024;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a Hopper block may opt in to
 
 static_assert((1 << kChunkShift) == kChunk, "kChunkShift is log2(kChunk)");
-static_assert(kTile >= kChunk, "the matvec block stages one chunk of q");
+static_assert(kMaxK <= kChunk, "one thread per basis row fits the owner's 64 threads");
 
-// Position of w[i] in shared memory: one float of padding after every
-// chunk, so that threads walking different chunks in step hit different
-// banks.
-__device__ __forceinline__ int widx(int i) { return i + (i >> kChunkShift); }
+struct StreamArgs {
+    const float* s;     // [b, n, n]
+    float* q;           // [b, k, n], row 0 given
+    float* part;        // [b, nchunk, n] matvec partials
+    float* scratch;     // [b, 2 + 2k, nchunk] chunk partials: alpha, beta^2, pass 1, pass 2
+    float* alpha;       // [b, k]
+    float* beta;        // [b, k]
+    float* p1;          // [b, k, k]
+    float* p2;          // [b, k, k]
+    float* w4;          // [b, k, n]
+    int b, n, k, nchunk, ntile, slots;
+    float eps, eps_sq;
+};
 
-__global__ void lanczos_stream_matvec(
-    const float* __restrict__ s, const float* __restrict__ q,
-    float* __restrict__ part, int n, int k, int j, int nchunk) {
-    __shared__ float qs[kChunk];
-    const int g = blockIdx.z;
-    const int c = blockIdx.y;
-    const int i = blockIdx.x * kTile + threadIdx.x;
-    const int lo = c * kChunk;
-    const int rows = min(kChunk, n - lo);
-    if (threadIdx.x < rows) {
-        qs[threadIdx.x] = q[(static_cast<size_t>(g) * k + j) * n + lo + threadIdx.x];
+// Floats of dynamic shared memory of one block; lanczos_cuda.py mirrors it.
+__host__ __device__ inline size_t smem_floats(int n, int k, int slots, int threads) {
+    const int nchunk = (n + kChunk - 1) / kChunk;
+    const size_t stage_t = static_cast<size_t>(k) * (nchunk | 1);
+    const size_t stage_w = static_cast<size_t>(nchunk < kChunk ? nchunk : kChunk) * kChunk;
+    return static_cast<size_t>(slots) * (static_cast<size_t>(k) * kLd + kChunk + 1) + k +
+           static_cast<size_t>(threads / kTile) * kChunk + (stage_t > stage_w ? stage_t : stage_w);
+}
+
+// The grid-wide barrier between two phases: cooperative_groups' own, which
+// needs no state of the caller's (so two calls at once share nothing) and
+// orders every block's writes before every block's later reads. Measured
+// against a hand-written arrival counter in device memory it was the
+// faster one on every grid tried on an H100 (chip_smoke.py prints what one
+// costs).
+__device__ __forceinline__ void grid_sync() { cg::this_grid().sync(); }
+
+// sum_{t<64} a[t]*b[t] in index order from shared memory: the products are
+// formed ahead, 16 at a time, so the dependent path is the adds alone.
+__device__ __forceinline__ float dot_chunk(const float* a, const float* b) {
+    float acc = 0.f;
+#pragma unroll
+    for (int t0 = 0; t0 < kChunk; t0 += 16) {
+        float pr[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) pr[u] = __fmul_rn(a[t0 + u], b[t0 + u]);
+#pragma unroll
+        for (int u = 0; u < 16; ++u) acc = __fadd_rn(acc, pr[u]);
     }
-    __syncthreads();
-    if (i >= n) return;
-    const float* col = s + (static_cast<size_t>(g) * n + lo) * n + i;
+    return acc;
+}
+
+// sum_{c<count} x[c] in index order from shared memory.
+__device__ __forceinline__ float chain_sum(const float* x, int count) {
     float acc = 0.f;
 #pragma unroll 8
-    for (int t = 0; t < rows; ++t) {
-        acc = __fadd_rn(acc, __fmul_rn(qs[t], col[static_cast<size_t>(t) * n]));
-    }
-    part[(static_cast<size_t>(g) * nchunk + c) * n + i] = acc;
+    for (int c = 0; c < count; ++c) acc = __fadd_rn(acc, x[c]);
+    return acc;
 }
 
-// sum_i a[i] * W[widx(i)] in the chunked order, returned to every thread.
-// `a` is a row of n floats in device memory, or nullptr for sum W^2.
-// T holds nchunk floats of scratch.
-__device__ float block_dot(const float* __restrict__ a, const float* W, float* T,
-                           int n, int nchunk) {
-    for (int c = threadIdx.x; c < nchunk; c += blockDim.x) {
-        const int lo = c * kChunk;
-        const int hi = min(lo + kChunk, n);
-        float acc = 0.f;
-        for (int i = lo; i < hi; ++i) {
-            const float wi = W[widx(i)];
-            acc = __fadd_rn(acc, __fmul_rn(a ? a[i] : wi, wi));
+// One (graph, chunk) pair a block owns, and where the block keeps it.
+struct Owned {
+    int g, c, lo;   // graph, chunk, first node index of the chunk
+    float* Q;       // [k][kLd] the chunk's columns of the basis, in shared memory
+    float* W;       // [kChunk] the chunk of the work vector, in shared memory
+    float* sg;      // [2 + 2k][nchunk] the graph's chunk partials, in device memory
+};
+
+// Slot sl of this block: pair sl * gridDim.x + blockIdx.x.
+__device__ __forceinline__ Owned owned_pair(const StreamArgs& a, float* QS, float* WS, int sl) {
+    const int p = sl * static_cast<int>(gridDim.x) + static_cast<int>(blockIdx.x);
+    Owned o;
+    o.g = p / a.nchunk;
+    o.c = p - o.g * a.nchunk;
+    o.lo = o.c * kChunk;
+    o.Q = QS + static_cast<size_t>(sl) * a.k * kLd;
+    o.W = WS + sl * kChunk;
+    o.sg = a.scratch + static_cast<size_t>(o.g) * (2 + 2 * a.k) * a.nchunk;
+    return o;
+}
+
+// Phase A: every team of kTile threads takes (graph, row chunk, column
+// tile) units in turn. QV holds each team's chunk of q_j.
+__device__ __forceinline__ void matvec_phase(const StreamArgs& a, int j, float* QV) {
+    const int n = a.n;
+    const int team = threadIdx.x / kTile;
+    const int lane = threadIdx.x - team * kTile;
+    const int teams = blockDim.x / kTile;
+    const long long units = static_cast<long long>(a.b) * a.nchunk * a.ntile;
+    const long long stride = static_cast<long long>(gridDim.x) * teams;
+    float* qv = QV + team * kChunk;
+    for (long long base = static_cast<long long>(blockIdx.x) * teams; base < units; base += stride) {
+        const long long u = base + team;
+        const bool active = u < units;
+        int g = 0, c = 0, tile = 0;
+        if (active) {
+            tile = static_cast<int>(u % a.ntile);
+            const long long gc = u / a.ntile;
+            c = static_cast<int>(gc % a.nchunk);
+            g = static_cast<int>(gc / a.nchunk);
         }
-        T[c] = acc;
+        const int lo = c * kChunk;
+        const int rows = min(kChunk, n - lo);
+        __syncthreads();  // the previous unit's readers of qv are done
+        if (active && lane < kChunk) {
+            qv[lane] = lane < rows
+                ? __ldcg(a.q + (static_cast<size_t>(g) * a.k + j) * n + lo + lane) : 0.f;
+        }
+        __syncthreads();
+        const int i = tile * kTile + lane;
+        if (active && i < n) {
+            const float* col = a.s + (static_cast<size_t>(g) * n + lo) * n + i;
+            float acc = 0.f;
+            if (rows == kChunk) {
+#pragma unroll 16
+                for (int t = 0; t < kChunk; ++t) {
+                    acc = __fadd_rn(acc, __fmul_rn(qv[t], __ldg(col + static_cast<size_t>(t) * n)));
+                }
+            } else {
+                for (int t = 0; t < rows; ++t) {
+                    acc = __fadd_rn(acc, __fmul_rn(qv[t], __ldg(col + static_cast<size_t>(t) * n)));
+                }
+            }
+            __stcg(a.part + (static_cast<size_t>(g) * a.nchunk + c) * n + i, acc);
+        }
     }
-    __syncthreads();
-    float total = 0.f;
-    for (int c = 0; c < nchunk; ++c) total = __fadd_rn(total, T[c]);
-    __syncthreads();  // T is rewritten by the next reduction
-    return total;
 }
 
-__global__ void __launch_bounds__(kFinishThreads) lanczos_stream_finish(
-    const float* __restrict__ part, float* q_out,
-    float* __restrict__ alpha_out, float* beta_out,
-    float* __restrict__ p1_out, float* __restrict__ p2_out,
-    float* __restrict__ w4_out,
-    int n, int k, int j, int nchunk, float eps, float eps_sq) {
+__global__ void __launch_bounds__(kMaxThreads) lanczos_stream_kernel(const StreamArgs a) {
     extern __shared__ float smem[];
-    float* W = smem;                       // [widx(n)] the work vector
-    float* T = W + widx(n) + 1;            // [k * nchunk] chunk partials
-    float* P = T + k * nchunk;             // [k] CGS coefficients of a pass
-
-    const int g = blockIdx.x;
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
-    const size_t step = static_cast<size_t>(g) * k + j;
-    float* qg = q_out + static_cast<size_t>(g) * k * n;
-    const float* qj = qg + static_cast<size_t>(j) * n;
-    const int rows = j + 1;  // rows of Q written so far; the rest are zero
+    const int n = a.n, k = a.k, nchunk = a.nchunk;
+    float* QS = smem;                                         // [slots][k][kLd] columns of Q
+    float* WS = QS + static_cast<size_t>(a.slots) * k * kLd;  // [slots][kChunk] the work vector
+    float* BP = WS + a.slots * kChunk;                        // [slots] beta of the previous step
+    float* P = BP + a.slots;                                  // [k] coefficients of a pass
+    float* QV = P + k;                                        // [teams][kChunk] the matvec's q_j
+    float* U = QV + (nt / kTile) * kChunk;                    // staging for what crosses the grid
 
-    // w = q_j^T S: the matvec partials in chunk order
-    const float* pg = part + static_cast<size_t>(g) * nchunk * n;
-    for (int i = tid; i < n; i += nt) {
-        float acc = 0.f;
-        for (int c = 0; c < nchunk; ++c) acc = __fadd_rn(acc, pg[static_cast<size_t>(c) * n + i]);
-        W[widx(i)] = acc;
+    // (graph, chunk) pairs this block owns: pair sl * gridDim.x + blockIdx.x
+    const int npairs = a.b * nchunk;
+    const int bid = static_cast<int>(blockIdx.x);
+    const int nown = npairs > bid
+        ? min(a.slots, (npairs - bid - 1) / static_cast<int>(gridDim.x) + 1) : 0;
+
+    for (int sl = 0; sl < nown; ++sl) {
+        const Owned o = owned_pair(a, QS, WS, sl);
+        if (tid < kChunk) {
+            o.Q[tid] = o.lo + tid < n ? a.q[static_cast<size_t>(o.g) * k * n + o.lo + tid] : 0.f;
+        }
+        if (tid == 0) BP[sl] = 0.f;
     }
     __syncthreads();
 
-    const float alpha = block_dot(qj, W, T, n, nchunk);
-    const float beta_prev = j == 0 ? 0.f : beta_out[step - 1];
-    for (int i = tid; i < n; i += nt) {
-        const float qi = qj[i];
-        const float q_prev = j == 0 ? 0.f : qi;  // carry quirk: q_prev is q_j
-        W[widx(i)] = __fsub_rn(__fsub_rn(W[widx(i)], __fmul_rn(alpha, qi)),
-                               __fmul_rn(beta_prev, q_prev));
-    }
-    __syncthreads();
+    for (int j = 0; j < k; ++j) {
+        const int rows = j + 1;  // rows of Q written so far; the rest are zero
 
-    float* const p_out[2] = {p1_out, p2_out};
-    for (int pass = 0; pass < 2; ++pass) {
-        // chunk partials of the coefficients p[r] = q_r . w, r < rows
-        for (int t = tid; t < rows * nchunk; t += nt) {
-            const int r = t / nchunk;
-            const int c = t - r * nchunk;
-            const int lo = c * kChunk;
-            const int hi = min(lo + kChunk, n);
-            const float* qr = qg + static_cast<size_t>(r) * n;
-            float acc = 0.f;
-            for (int i = lo; i < hi; ++i) acc = __fadd_rn(acc, __fmul_rn(qr[i], W[widx(i)]));
-            T[t] = acc;
-        }
-        __syncthreads();
-        for (int r = tid; r < k; r += nt) {
-            float p = 0.f;
-            if (r < rows) {
-                for (int c = 0; c < nchunk; ++c) p = __fadd_rn(p, T[r * nchunk + c]);
-            }
-            P[r] = p;
-            p_out[pass][step * k + r] = p;
-        }
-        __syncthreads();
-        for (int i = tid; i < n; i += nt) {
-            float acc = 0.f;
-            for (int r = 0; r < rows; ++r) {
-                acc = __fadd_rn(acc, __fmul_rn(qg[static_cast<size_t>(r) * n + i], P[r]));
-            }
-            W[widx(i)] = __fsub_rn(W[widx(i)], acc);
-        }
-        __syncthreads();
-    }
+        matvec_phase(a, j, QV);
+        grid_sync();
 
-    const float sq = block_dot(nullptr, W, T, n, nchunk);
-    const float beta = __fsqrt_rn(fmaxf(sq, eps_sq));
-    const bool valid = beta > eps;
-    float* q_next = qg + static_cast<size_t>(j + 1) * n;
-    for (int i = tid; i < n; i += nt) {
-        const float w = W[widx(i)];
-        w4_out[step * n + i] = w;
-        if (j + 1 < k) q_next[i] = valid ? __fdiv_rn(w, beta) : 0.f;
-    }
-    if (tid == 0) {
-        alpha_out[step] = alpha;
-        beta_out[step] = valid ? beta : 0.f;
+        // B: w = q_j^T S from the matvec partials in chunk order; alpha's partial
+        for (int sl = 0; sl < nown; ++sl) {
+            const Owned o = owned_pair(a, QS, WS, sl);
+            const float* pg = a.part + static_cast<size_t>(o.g) * nchunk * n + o.lo;
+            float acc = 0.f;
+            for (int r0 = 0; r0 < nchunk; r0 += kChunk) {
+                const int rt = min(kChunk, nchunk - r0);
+                __syncthreads();  // U is free
+                for (int e = tid; e < rt * kChunk; e += nt) {
+                    const int rr = e >> kChunkShift;
+                    const int ii = e & (kChunk - 1);
+                    U[e] = o.lo + ii < n ? __ldcg(pg + static_cast<size_t>(r0 + rr) * n + ii) : 0.f;
+                }
+                __syncthreads();
+                if (tid < kChunk) {
+#pragma unroll 8
+                    for (int rr = 0; rr < rt; ++rr) acc = __fadd_rn(acc, U[rr * kChunk + tid]);
+                }
+            }
+            if (tid < kChunk) o.W[tid] = acc;
+            __syncthreads();
+            if (tid == 0) __stcg(o.sg + o.c, dot_chunk(o.Q + j * kLd, o.W));
+        }
+        grid_sync();
+
+        // C: alpha, the three-term update, partials of the pass-1 coefficients
+        for (int sl = 0; sl < nown; ++sl) {
+            const Owned o = owned_pair(a, QS, WS, sl);
+            __syncthreads();
+            for (int e = tid; e < nchunk; e += nt) U[e] = __ldcg(o.sg + e);
+            __syncthreads();
+            if (tid < kChunk) {
+                const float alpha = chain_sum(U, nchunk);
+                const float qi = o.Q[j * kLd + tid];
+                const float q_prev = j == 0 ? 0.f : qi;  // carry quirk: q_prev is q_j
+                o.W[tid] = __fsub_rn(__fsub_rn(o.W[tid], __fmul_rn(alpha, qi)),
+                                     __fmul_rn(BP[sl], q_prev));
+                if (tid == 0 && o.c == 0) a.alpha[static_cast<size_t>(o.g) * k + j] = alpha;
+            }
+            __syncthreads();
+            if (tid < rows) {
+                __stcg(o.sg + static_cast<size_t>(2 + tid) * nchunk + o.c,
+                       dot_chunk(o.Q + tid * kLd, o.W));
+            }
+        }
+        grid_sync();
+
+        // D and E: the coefficients of a pass from their partials, the
+        // subtraction, then the next sum's partials
+        for (int pass = 0; pass < 2; ++pass) {
+            float* p_out = pass == 0 ? a.p1 : a.p2;
+            for (int sl = 0; sl < nown; ++sl) {
+                const Owned o = owned_pair(a, QS, WS, sl);
+                const float* T = o.sg + static_cast<size_t>(2 + pass * k) * nchunk;
+                const int ldu = nchunk | 1;
+                const size_t step = static_cast<size_t>(o.g) * k + j;
+                __syncthreads();
+                for (int e = tid; e < rows * nchunk; e += nt) {
+                    const int r = e / nchunk;
+                    U[r * ldu + (e - r * nchunk)] = __ldcg(T + e);
+                }
+                __syncthreads();
+                if (tid < k) {
+                    const float coef = tid < rows ? chain_sum(U + tid * ldu, nchunk) : 0.f;
+                    P[tid] = coef;
+                    if (o.c == 0) p_out[step * k + tid] = coef;
+                }
+                __syncthreads();
+                if (tid < kChunk) {
+                    float acc = 0.f;
+#pragma unroll 4
+                    for (int r = 0; r < rows; ++r) {
+                        acc = __fadd_rn(acc, __fmul_rn(o.Q[r * kLd + tid], P[r]));
+                    }
+                    o.W[tid] = __fsub_rn(o.W[tid], acc);
+                }
+                __syncthreads();
+                if (pass == 0) {
+                    if (tid < rows) {
+                        __stcg(o.sg + static_cast<size_t>(2 + k + tid) * nchunk + o.c,
+                               dot_chunk(o.Q + tid * kLd, o.W));
+                    }
+                } else {
+                    if (tid < kChunk && o.lo + tid < n) a.w4[step * n + o.lo + tid] = o.W[tid];
+                    if (tid == 0) __stcg(o.sg + nchunk + o.c, dot_chunk(o.W, o.W));
+                }
+            }
+            grid_sync();
+        }
+
+        // F: beta, the breakdown gate, q_{j+1}
+        for (int sl = 0; sl < nown; ++sl) {
+            const Owned o = owned_pair(a, QS, WS, sl);
+            __syncthreads();
+            for (int e = tid; e < nchunk; e += nt) U[e] = __ldcg(o.sg + nchunk + e);
+            __syncthreads();
+            if (tid < kChunk) {
+                const float beta = __fsqrt_rn(fmaxf(chain_sum(U, nchunk), a.eps_sq));
+                const bool valid = beta > a.eps;
+                if (j + 1 < k) {
+                    const float qn = valid ? __fdiv_rn(o.W[tid], beta) : 0.f;
+                    o.Q[(j + 1) * kLd + tid] = qn;
+                    if (o.lo + tid < n) {
+                        __stcg(a.q + (static_cast<size_t>(o.g) * k + j + 1) * n + o.lo + tid, qn);
+                    }
+                }
+                if (tid == 0) {
+                    BP[sl] = valid ? beta : 0.f;
+                    if (o.c == 0) a.beta[static_cast<size_t>(o.g) * k + j] = valid ? beta : 0.f;
+                }
+            }
+        }
+        if (j + 1 < k) grid_sync();
     }
 }
 
-size_t finish_smem_bytes(int n, int k) {
-    const int nchunk = (n + kChunk - 1) / kChunk;
-    return sizeof(float) * (static_cast<size_t>(n) + nchunk + 2 +
-                            static_cast<size_t>(k) * nchunk + k);
+// `count` barriers and nothing else: what a barrier costs on this grid.
+__global__ void __launch_bounds__(kMaxThreads) barrier_probe_kernel(int count) {
+    for (int i = 0; i < count; ++i) grid_sync();
 }
 
 }  // namespace
@@ -229,47 +391,100 @@ extern "C" {
 int lanczos_stream_chunk() { return kChunk; }
 int lanczos_stream_max_n() { return kMaxN; }
 int lanczos_stream_max_k() { return kMaxK; }
+int lanczos_stream_tile() { return kTile; }
+int lanczos_stream_smem_limit() { return kSmemLimit; }
 
-// Run all k steps on `stream` for b graphs: s [b,n,n]; q [b,k,n] with row 0
-// of each graph holding the start vector (the other rows are written here);
-// part [b, ceil(n/64), n] scratch; -> alpha, beta [b,k], p1, p2 [b,k,k],
-// w4 [b,k,n]; all float32, contiguous, on `device`. eps_sq is eps*eps
-// rounded to float as the plain version rounds it. Returns the cudaError_t
-// of the first launch that failed (0 on success).
-int lanczos_stream_launch(const void* s, void* q, void* part, void* alpha, void* beta,
-                          void* p1, void* p2, void* w4,
-                          int b, int n, int k, float eps, float eps_sq,
-                          void* stream, int device) {
-    if (b < 1 || b > 65535 || n < 1 || n > kMaxN || k < 1 || k > kMaxK || k > n) {
-        return cudaErrorInvalidValue;
-    }
+// Bytes of dynamic shared memory a block of `threads` needs to own `slots`
+// (graph, chunk) pairs.
+long long lanczos_stream_smem_bytes(int n, int k, int slots, int threads) {
+    return static_cast<long long>(sizeof(float) * smem_floats(n, k, slots, threads));
+}
+
+// Prepare `device` for the kernel and describe it: its SM count and how
+// many blocks of `threads` with `smem` bytes of dynamic shared memory one
+// SM holds at once. The kernel's dynamic shared memory is opened to
+// kSmemLimit here, the same value whatever the shape: the attribute
+// belongs to the function, not to a launch, so calls of different shapes
+// from different host threads cannot undo each other's. The host calls
+// this once per shape and device before the first launch there
+// (lanczos_cuda.py:stream_plan). Returns a cudaError_t.
+int lanczos_stream_occupancy(int threads, long long smem, int device,
+                             int* sm_count, int* blocks_per_sm) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
+    int coop = 0;
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+    err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(lanczos_stream_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, lanczos_stream_kernel, threads, static_cast<size_t>(smem));
+}
+
+// One cooperative launch on `stream` that runs all k steps for b graphs:
+// s [b,n,n]; q [b,k,n] with row 0 of each graph holding the start vector
+// (the other rows are written here); part [b, ceil(n/64), n] and scratch
+// [b, 2+2k, ceil(n/64)] scratch; -> alpha, beta [b,k], p1, p2 [b,k,k],
+// w4 [b,k,n]; all float32, contiguous, on `device`. eps_sq is eps*eps
+// rounded to float as the plain version rounds it. `grid` blocks of
+// `threads`, each owning up to `slots` (graph, chunk) pairs, as
+// lanczos_cuda.py:plan_stream lays them out. Returns the cudaError_t of
+// the launch (0 on success); the runtime refuses a grid that is not
+// co-resident, and nothing here shrinks it.
+int lanczos_stream_launch(const void* s, void* q, void* part, void* scratch,
+                          void* alpha, void* beta, void* p1, void* p2, void* w4,
+                          int b, int n, int k, float eps, float eps_sq,
+                          int grid, int threads, int slots, void* stream, int device) {
+    if (b < 1 || n < 1 || n > kMaxN || k < 1 || k > kMaxK || k > n ||
+        threads < kTile || threads > kMaxThreads || threads % kTile != 0 ||
+        grid < 1 || slots < 1) {
+        return cudaErrorInvalidValue;
+    }
     const int nchunk = (n + kChunk - 1) / kChunk;
-    const size_t smem = finish_smem_bytes(n, k);
-    if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(lanczos_stream_finish,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
+    if (static_cast<long long>(grid) * slots < static_cast<long long>(b) * nchunk) {
+        return cudaErrorInvalidValue;
     }
-    const dim3 grid((n + kTile - 1) / kTile, nchunk, b);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    for (int j = 0; j < k; ++j) {
-        lanczos_stream_matvec<<<grid, kTile, 0, st>>>(
-            static_cast<const float*>(s), static_cast<const float*>(q),
-            static_cast<float*>(part), n, k, j, nchunk);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return err;
-        lanczos_stream_finish<<<b, kFinishThreads, smem, st>>>(
-            static_cast<const float*>(part), static_cast<float*>(q),
-            static_cast<float*>(alpha), static_cast<float*>(beta),
-            static_cast<float*>(p1), static_cast<float*>(p2), static_cast<float*>(w4),
-            n, k, j, nchunk, eps, eps_sq);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return err;
-    }
-    return cudaSuccess;
+    const size_t smem = sizeof(float) * smem_floats(n, k, slots, threads);
+    if (smem > static_cast<size_t>(kSmemLimit)) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    StreamArgs a;
+    a.s = static_cast<const float*>(s);
+    a.q = static_cast<float*>(q);
+    a.part = static_cast<float*>(part);
+    a.scratch = static_cast<float*>(scratch);
+    a.alpha = static_cast<float*>(alpha);
+    a.beta = static_cast<float*>(beta);
+    a.p1 = static_cast<float*>(p1);
+    a.p2 = static_cast<float*>(p2);
+    a.w4 = static_cast<float*>(w4);
+    a.b = b;
+    a.n = n;
+    a.k = k;
+    a.nchunk = nchunk;
+    a.ntile = (n + kTile - 1) / kTile;
+    a.slots = slots;
+    a.eps = eps;
+    a.eps_sq = eps_sq;
+    void* args[] = {&a};
+    return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lanczos_stream_kernel),
+                                       dim3(grid), dim3(threads), args, smem,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// One cooperative launch of `grid` blocks of `threads` that does `count`
+// grid barriers and nothing else. Returns a cudaError_t.
+int lanczos_stream_barrier_probe(int grid, int threads, int count, void* stream, int device) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    void* args[] = {&count};
+    return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(barrier_probe_kernel),
+                                       dim3(grid), dim3(threads), args, 0,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 const char* lanczos_stream_error_string(int code) {

@@ -7,7 +7,8 @@ Counterpart of ``lanczosnet_tpu/ops/lanczos_pallas.py``:
 Graphs of at most 128 nodes go to ``csrc/lanczos_tridiag.cu`` (one
 block per graph, S in shared memory; replaces the Pallas
 ``_lanczos_kernel``), larger ones up to 16384 nodes to
-``csrc/lanczos_stream.cu`` (S streamed from device memory each step;
+``csrc/lanczos_stream.cu`` (S streamed from device memory each step by
+one persistent cooperative launch, laid out by ``plan_stream``;
 replaces ``_lanczos_stream_kernel``). On a CPU tensor it runs the chosen
 kernel's plain version (``ops/lanczos.py``); on a CUDA tensor it
 launches the kernel or raises, unless the caller asks for the plain
@@ -24,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -43,11 +45,16 @@ from lanczosnet_torch.ops.precision import f32_matmul
 # and the work vectors of one graph live in one block's shared memory.
 # Equal to the JAX model's fused-path limit (_FUSED_N_MAX).
 N_MAX = 128
-# The streamed kernel's limits: the work vector and the chunk partials of
-# one graph fit one block's shared memory up to this N; K is capped where
-# the sums over basis rows stay short.
+# The streamed kernel's limits: K is capped where the sums over basis rows
+# stay short and one thread per basis row fits a chunk's 64 threads.
 STREAM_N_MAX = 16384
 STREAM_K_MAX = 64
+# Its launch shape: threads of a block (teams of STREAM_TILE threads take
+# the matvec's units) and the dynamic shared memory a Hopper block may ask
+# for. One block of 1024 threads fills an SM.
+STREAM_THREADS = 1024
+STREAM_TILE = 128
+STREAM_SMEM_LIMIT = 232448
 IMPLS = ("auto", "kernel", "plain")
 
 
@@ -72,11 +79,19 @@ class LaunchCounter:
             return self._count
 
 
-# One counter per kernel. ``stream_launches`` counts calls of
-# ``launch_stream``; each is 2K device launches (a matvec and a finish
-# kernel per Lanczos step).
+# One counter per kernel; each counts that kernel's launches on the
+# device. A call of ``launch_stream`` is ``StreamPlan.launches`` of them
+# (one, unless the batch does not fit one co-resident grid).
 launches = LaunchCounter()
 stream_launches = LaunchCounter()
+
+
+def tridiag_padded_n(n: int) -> int:
+    """The padded N of the shared-memory kernel for a graph of ``n`` nodes:
+    the least of 32, 64, 128 that holds it. It is the block's thread
+    count and the compile-time length of every sum; the padding is zeros,
+    which add nothing. One instantiation of the kernel per value."""
+    return next(np_ for np_ in (32, 64, N_MAX) if n <= np_)
 
 
 @functools.cache
@@ -91,8 +106,12 @@ def _lib() -> ctypes.CDLL:
     lib.lanczos_tridiag_error_string.argtypes = [ctypes.c_int]
     lib.lanczos_tridiag_error_string.restype = ctypes.c_char_p
     lib.lanczos_tridiag_max_n.restype = ctypes.c_int
-    if lib.lanczos_tridiag_max_n() != N_MAX:
-        raise RuntimeError("csrc/lanczos_tridiag.cu and N_MAX disagree")
+    lib.lanczos_tridiag_padded_n.argtypes = [ctypes.c_int]
+    lib.lanczos_tridiag_padded_n.restype = ctypes.c_int
+    if lib.lanczos_tridiag_max_n() != N_MAX or any(
+        lib.lanczos_tridiag_padded_n(n) != tridiag_padded_n(n) for n in range(1, N_MAX + 1)
+    ):
+        raise RuntimeError("csrc/lanczos_tridiag.cu and its Python constants disagree")
     return lib
 
 
@@ -100,22 +119,131 @@ def _lib() -> ctypes.CDLL:
 def _stream_lib() -> ctypes.CDLL:
     lib = _build.load("lanczos_stream")
     ptr = ctypes.c_void_p
-    lib.lanczos_stream_launch.argtypes = [ptr] * 8 + [
+    lib.lanczos_stream_launch.argtypes = [ptr] * 9 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ptr, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr, ctypes.c_int,
     ]
     lib.lanczos_stream_launch.restype = ctypes.c_int
+    lib.lanczos_stream_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.lanczos_stream_occupancy.restype = ctypes.c_int
+    lib.lanczos_stream_barrier_probe.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr, ctypes.c_int,
+    ]
+    lib.lanczos_stream_barrier_probe.restype = ctypes.c_int
+    lib.lanczos_stream_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.lanczos_stream_smem_bytes.restype = ctypes.c_longlong
     lib.lanczos_stream_error_string.argtypes = [ctypes.c_int]
     lib.lanczos_stream_error_string.restype = ctypes.c_char_p
     for fn, want in (
         (lib.lanczos_stream_chunk, STREAM_CHUNK),
         (lib.lanczos_stream_max_n, STREAM_N_MAX),
         (lib.lanczos_stream_max_k, STREAM_K_MAX),
+        (lib.lanczos_stream_tile, STREAM_TILE),
+        (lib.lanczos_stream_smem_limit, STREAM_SMEM_LIMIT),
     ):
         fn.restype = ctypes.c_int
         if fn() != want:
             raise RuntimeError("csrc/lanczos_stream.cu and its Python constants disagree")
+    for shape in ((129, 1, 1), (2708, 20, 1), (16384, 64, 2)):
+        if lib.lanczos_stream_smem_bytes(*shape, STREAM_THREADS) != stream_smem_bytes(*shape):
+            raise RuntimeError("csrc/lanczos_stream.cu and stream_smem_bytes disagree")
     return lib
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _stream_check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _stream_lib().lanczos_stream_error_string(rc).decode()
+        raise RuntimeError(f"lanczos_stream {what} failed: {msg} ({rc})")
+
+
+def stream_smem_bytes(n: int, k: int, slots: int) -> int:
+    """Dynamic shared memory of one block of the streamed kernel that owns
+    ``slots`` (graph, chunk) pairs: per pair its 64 columns of Q (K rows
+    of 65 floats), its chunk of w and the previous beta; the coefficients
+    of a pass; each matvec team's chunk of q; and the staging area for
+    what crosses the grid (K rows of chunk partials, or a 64-row tile of
+    matvec partials). Mirrors ``smem_floats`` in csrc/lanczos_stream.cu."""
+    nchunk = -(-n // STREAM_CHUNK)
+    stage = max(k * (nchunk | 1), min(nchunk, STREAM_CHUNK) * STREAM_CHUNK)
+    per_pair = k * (STREAM_CHUNK + 1) + STREAM_CHUNK + 1
+    return 4 * (slots * per_pair + k + (STREAM_THREADS // STREAM_TILE) * STREAM_CHUNK + stage)
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """How a call of the streamed kernel is laid on the card: ``launches``
+    cooperative launches of ``grid`` blocks of ``STREAM_THREADS``, each
+    launch taking ``graphs_per_launch`` graphs and each block owning up to
+    ``slots`` (graph, chunk) pairs in ``smem_bytes`` of shared memory."""
+
+    grid: int
+    slots: int
+    graphs_per_launch: int
+    launches: int
+    smem_bytes: int
+
+
+def plan_stream(b: int, n: int, k: int, sm_count: int, blocks_per_sm: int) -> StreamPlan:
+    """Lay ``b`` graphs of ``n`` nodes and ``k`` steps on a device that
+    holds ``sm_count * blocks_per_sm`` blocks at once. A pure function of
+    the shape and the device's properties; it never looks at a failure.
+
+    Every (graph, chunk) pair of a launch needs an owner among co-resident
+    blocks. Blocks own one pair each while the grid has enough of them,
+    then several ("slots") as far as shared memory allows, and beyond
+    that the graphs go in equal groups, one launch each. The grid is no
+    larger than the work: every pair an owner, every matvec unit a team.
+    Raises ``ValueError`` where even one graph cannot be held."""
+    if min(b, n, k, sm_count, blocks_per_sm) < 1:
+        raise ValueError("plan_stream needs positive sizes")
+    nchunk = -(-n // STREAM_CHUNK)
+    resident = sm_count * blocks_per_sm
+    max_slots = 0
+    while stream_smem_bytes(n, k, max_slots + 1) <= STREAM_SMEM_LIMIT:
+        max_slots += 1
+    if resident * max_slots < nchunk:
+        raise ValueError(
+            f"the streamed Lanczos kernel cannot hold one graph of n={n}, k={k}: its "
+            f"{nchunk} chunks need owners among {resident} co-resident blocks with room "
+            f"for {max_slots} chunks each ({STREAM_SMEM_LIMIT} bytes of shared memory)"
+        )
+    launches = -(-b // (resident * max_slots // nchunk))  # whole graphs only
+    graphs = -(-b // launches)
+    pairs = graphs * nchunk
+    units = pairs * -(-n // STREAM_TILE)
+    teams = STREAM_THREADS // STREAM_TILE
+    grid = min(resident, max(pairs, -(-units // teams)))
+    slots = -(-pairs // grid)
+    return StreamPlan(grid, slots, graphs, -(-b // graphs), stream_smem_bytes(n, k, slots))
+
+
+@functools.cache
+def stream_plan(b: int, n: int, k: int, device: int) -> StreamPlan:
+    """``plan_stream`` for the CUDA device of this index: the occupancy of
+    the kernel at the planned shared memory is asked of the runtime, and
+    the plan is made again if more slots lowered it. The query also opens
+    the kernel's shared memory on that device, so every launch comes after
+    a plan; the plan is kept, and a launch asks the runtime nothing."""
+    lib = _stream_lib()
+    sm_count, per_sm = ctypes.c_int(), ctypes.c_int()
+    smem = stream_smem_bytes(n, k, 1)
+    while True:
+        _stream_check(lib.lanczos_stream_occupancy(
+            STREAM_THREADS, smem, device, ctypes.byref(sm_count), ctypes.byref(per_sm)),
+            "occupancy query")
+        if per_sm.value < 1:
+            raise RuntimeError(f"no block of the streamed kernel fits an SM at n={n}, k={k}")
+        plan = plan_stream(b, n, k, sm_count.value, per_sm.value)
+        if plan.smem_bytes == smem:
+            return plan
+        smem = plan.smem_bytes
 
 
 def check_shapes(s: torch.Tensor, mask: torch.Tensor, k: int) -> None:
@@ -154,7 +282,7 @@ def launch(s: torch.Tensor, q0: torch.Tensor, outs: tuple[torch.Tensor, ...],
     rc = _lib().lanczos_tridiag_launch(
         s.data_ptr(), q0.data_ptr(), *(o.data_ptr() for o in outs),
         b, n, k, eps, eps * eps, torch.cuda.current_stream(s.device).cuda_stream,
-        s.device.index if s.device.index is not None else torch.cuda.current_device(),
+        _device_index(s.device),
     )
     if rc != 0:
         msg = _lib().lanczos_tridiag_error_string(rc).decode()
@@ -168,18 +296,36 @@ def launch_stream(s: torch.Tensor, q: torch.Tensor, part: torch.Tensor,
     ``[B,k,N]`` holds the start vector in row 0 and receives the basis;
     ``part`` ``[B, ceil(N/64), N]`` is scratch; ``outs`` are (alphas,
     betas_full, p1, p2, w4), preallocated. All float32, contiguous, on
-    one CUDA device."""
+    one CUDA device. The graphs go ``StreamPlan.graphs_per_launch`` to a
+    cooperative launch. The chunk partials that cross the grid are
+    allocated here, per call, and the grid barrier keeps no state of the
+    caller's: two calls at once, from two threads or on two streams,
+    share nothing."""
     b, n, _ = s.shape
     lib = _stream_lib()
-    rc = lib.lanczos_stream_launch(
-        s.data_ptr(), q.data_ptr(), part.data_ptr(), *(o.data_ptr() for o in outs),
-        b, n, k, eps, eps * eps, torch.cuda.current_stream(s.device).cuda_stream,
-        s.device.index if s.device.index is not None else torch.cuda.current_device(),
-    )
-    if rc != 0:
-        msg = lib.lanczos_stream_error_string(rc).decode()
-        raise RuntimeError(f"lanczos_stream launch failed: {msg} ({rc})")
-    stream_launches.add()
+    device = _device_index(s.device)
+    plan = stream_plan(b, n, k, device)
+    scratch = torch.empty((b, 2 + 2 * k, -(-n // STREAM_CHUNK)), dtype=torch.float32,
+                          device=s.device)
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    for g0 in range(0, b, plan.graphs_per_launch):
+        group = [t[g0: g0 + plan.graphs_per_launch] for t in (s, q, part, scratch, *outs)]
+        _stream_check(lib.lanczos_stream_launch(
+            *(t.data_ptr() for t in group), group[0].shape[0], n, k, eps, eps * eps,
+            plan.grid, STREAM_THREADS, plan.slots, stream, device,
+        ), "launch")
+        stream_launches.add()
+
+
+def launch_barrier_probe(grid: int, threads: int, count: int, device: torch.device) -> None:
+    """One cooperative launch of ``grid`` blocks of ``threads`` on the
+    current stream that does ``count`` grid barriers and nothing else:
+    timed with ``count`` and with none, it says what a barrier of the
+    streamed kernel costs on that grid."""
+    _stream_check(_stream_lib().lanczos_stream_barrier_probe(
+        grid, threads, count, torch.cuda.current_stream(device).cuda_stream,
+        _device_index(device),
+    ), "barrier probe")
 
 
 def stream_buffers(b: int, n: int, k: int, device) -> tuple[torch.Tensor, ...]:

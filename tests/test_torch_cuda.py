@@ -15,6 +15,8 @@ kernel (N > 128) to its contract, 1e-4 on all six outputs and the same
 breakdown step, and the test prints the error it found.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -58,7 +60,10 @@ def spd_case(seed: int, b: int, n: int, counts):
 
 CASES = {
     "n12-k6": (lambda: spd_case(0, 5, 12, [12, 9, 4, 1, 12]), 6),
+    "n32-k32": (lambda: spd_case(5, 3, 32, [32, 20, 2]), 32),
     "n33-k33": (lambda: spd_case(1, 3, 33, [33, 30, 2]), 33),
+    "n64-k20": (lambda: spd_case(6, 2, 64, [64, 40]), 20),
+    "n65-k65": (lambda: spd_case(7, 2, 65, [65, 3]), 65),
     "n128-k20": (lambda: spd_case(2, 4, 128, [128, 100, 7, 1]), 20),
     "n128-k128": (lambda: spd_case(3, 1, 128, [128]), 128),
     "zero": (lambda: (torch.zeros(2, 8, 8), torch.tensor([[1.0] * 3 + [0.0] * 5, [0.0] * 8])), 4),
@@ -101,6 +106,11 @@ STREAM_CASES = {
     "n1000-k20": (lambda: spd_case(10, 1, 1000, [1000]), 20),
     "n2708-k20": (lambda: spd_case(11, 1, 2708, [2708]), 20),
     "zero-n256": (lambda: (torch.zeros(2, 256, 256), torch.ones(2, 256)), 6),
+    # more (graph, chunk) pairs than SMs: a block owns several chunks
+    "b40-n520-k12": (lambda: spd_case(12, 40, 520, [520 - 13 * i for i in range(40)]), 12),
+    # more pairs than the blocks' shared memory holds: two launches
+    "b600-n160-k64": (lambda: spd_case(13, 600, 160, [160 - (i % 158) for i in range(600)]), 64),
+    "n4096-k5": (lambda: spd_case(14, 1, 4096, [4000]), 5),
 }
 
 
@@ -111,7 +121,9 @@ def test_stream_kernel_matches_plain_version(card, case):
     before = lanczos_cuda.stream_launches.count
     got = lanczos_tridiag_cuda_resid(s, mask, k)
     torch.cuda.synchronize()
-    assert lanczos_cuda.stream_launches.count == before + 1
+    # the counter counts launches on the device: one per group of graphs
+    plan = lanczos_cuda.stream_plan(s.shape[0], s.shape[1], k, torch.cuda.current_device())
+    assert lanczos_cuda.stream_launches.count == before + plan.launches
     want = lanczos_tridiag_resid_stream(s, mask, k)
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
     print(f"stream kernel vs plain version, {case}: max abs err {errs}")
@@ -119,6 +131,83 @@ def test_stream_kernel_matches_plain_version(card, case):
         assert g.shape == w.shape and torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
     assert torch.equal((got[1] > 0).sum(1), (want[1] > 0).sum(1))
+
+
+def test_stream_kernel_at_its_largest_graph(card):
+    """N = 16384 (S is 1.07 GB, made on the card), three steps."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    s = torch.randn(16384, 16384, device=card, generator=gen) * 0.004
+    s = (0.5 * (s + s.T))[None].contiguous()
+    mask = torch.ones(1, 16384, device=card)
+    got = lanczos_tridiag_cuda_resid(s, mask, 3)
+    torch.cuda.synchronize()
+    want = lanczos_tridiag_resid_stream(s, mask, 3)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+    assert lanczos_cuda.stream_plan(1, 16384, 3, torch.cuda.current_device()).slots >= 2
+
+
+def test_stream_plans_of_the_cases_cover_slots_and_groups(card):
+    dev = torch.cuda.current_device()
+    assert lanczos_cuda.stream_plan(40, 520, 12, dev).slots >= 2
+    assert lanczos_cuda.stream_plan(600, 160, 64, dev).launches >= 2
+    assert lanczos_cuda.stream_plan(1, 2708, 20, dev).launches == 1
+
+
+# Two shapes for two threads. The second pair makes blocks own several
+# chunks at K=64, so both calls need more than the 48 KB of dynamic shared
+# memory a kernel gets unasked, and different amounts of it.
+THREAD_CASES = {
+    "two-sizes-of-one-graph": (
+        [lambda i=i: spd_case(20 + i, 1, 1000 + 300 * i, [900 + 300 * i]) for i in range(2)], 10),
+    "two-batches-with-opt-in-shared-memory": (
+        [lambda b=b: spd_case(30 + b, b, 160, [160 - (i % 158) for i in range(b)])
+         for b in (100, 200)], 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(THREAD_CASES))
+def test_two_threads_on_two_streams_get_the_plain_versions_bits(card, case):
+    """Two host threads call the streamed kernel at once, each on its own
+    stream and with its own shape, many times over: the calls share no
+    scratch, no barrier state and no per-launch setting of the kernel, so
+    every result equals the plain version's exactly."""
+    makes, k = THREAD_CASES[case]
+    inputs = [tuple(t.to(card) for t in make()) for make in makes]
+    smem = [lanczos_cuda.stream_plan(s.shape[0], s.shape[1], k, torch.cuda.current_device()).smem_bytes
+            for s, _ in inputs]
+    assert smem[0] != smem[1]
+    if "opt-in" in case:
+        assert min(smem) > 48 * 1024
+    wants = [lanczos_tridiag_resid_stream(s, mask, k) for s, mask in inputs]
+    lanczos_tridiag_cuda_resid(*inputs[0], k)  # build and load before the threads start
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in inputs]
+    failures = []
+    start = threading.Barrier(len(inputs))
+
+    def worker(i):
+        try:
+            s, mask = inputs[i]
+            start.wait(timeout=60)
+            with torch.cuda.stream(streams[i]):
+                for rep in range(20):
+                    got = lanczos_tridiag_cuda_resid(s, mask, k)
+                    streams[i].synchronize()
+                    for name, g, w in zip("abqpPw", got, wants[i]):
+                        if not torch.equal(g, w):
+                            failures.append((i, rep, name, float((g - w).abs().max())))
+        except Exception as exc:  # a thread's failure must reach the test
+            failures.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(inputs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert failures == []
 
 
 def test_wrapper_picks_the_kernel_by_shape(card):
