@@ -22,7 +22,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    several client threads; every answer is finite and matches the same
    model fed the plain version's Ritz pairs on the card (1e-4); the
    kernel's launch count must grow during this run.
-5. barrier and stream_kernel: what one grid barrier of the streamed
+5. qm8_train: ``configs/qm8_lanczos_net.yaml``, read with the port's
+   own config reader and cut to 4 epochs (``max_epoch`` 30 → 4, so the
+   ``lr_decay_epoch`` milestones never fire; the run directory in a
+   temporary one; ``dataset.pack_cache: false``, so the three packs run
+   the kernel), trains the flagship at full width through
+   ``python -m lanczosnet_torch.cli``: every epoch's loss finite and the
+   last below the first, validation and test MAE finite, the
+   shared-memory kernel launched at least once per 256-graph chunk of
+   the three packs; the packed Ritz pairs of the test split equal the
+   plain version's (max abs error 0.0); ``-t`` on the best checkpoint
+   gives the run's test MAE again (1e-6); ``Predictor.from_run_dir``
+   behind ``MicroBatcher`` answers the test graphs as the restored model
+   does on the packed batches (1e-4); graphs/s, MFU, a stage split of
+   one training step and a profile of a few steps are printed.
+6. barrier and stream_kernel: what one grid barrier of the streamed
    kernel's cooperative launch costs (a launch of barriers and nothing
    else); then the streamed Lanczos kernel (N > 128) against its plain
    version on the card, the same contract, on masked random operators at
@@ -33,7 +47,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    then both timed at that shape, and the kernel compared once more
    after the timing loop, so that state left from call to call would
    show.
-6. citation_train: ``CitationRunner`` trains the AdaLanczosNet of
+7. citation_train: ``CitationRunner`` trains the AdaLanczosNet of
    ``configs/cora_ada_lanczos_net.yaml`` at full width on a synthetic
    Cora-sized graph (N=2708, F=1433, 7 classes) for a few epochs and
    tests it; the streamed kernel's call count must grow by at least one
@@ -41,8 +55,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    below the first's, and eval-mode logits and the ``kernel_embed``
    gradient agree between the kernel forward and the plain forward
    (1e-4); step times and the stage split are printed.
-7. kernels: one line per ported kernel, its error, its time, its bound,
-   its latency floor and its launches, all of this run.
+8. kernels: one line per ported kernel, its error, its time, its bound,
+   its latency floor and its launches, all of this run (the
+   shared-memory kernel's launches: serving and packing).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -54,11 +69,15 @@ import subprocess
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from lanczosnet_torch import cli
 from lanczosnet_torch.core.graph_batch import batch_graphs
+from lanczosnet_torch.data.dataset import RITZ_CHUNK, pack_dataset
+from lanczosnet_torch.data.loader import to_device
 from lanczosnet_torch.data.qm8 import NUM_ATOM, NUM_TASK, synthetic_qm8_graphs
 from lanczosnet_torch.models import build_model
 from lanczosnet_torch.ops import _build, lanczos_cuda
@@ -77,7 +96,10 @@ from lanczosnet_torch.train.node_step import (
     make_node_train_step,
     masked_ce_loss,
 )
+from lanczosnet_torch.train.checkpoint import Checkpointer
 from lanczosnet_torch.train.optim import build_optimizer
+from lanczosnet_torch.train.step import make_train_step, weighted_mae
+from lanczosnet_torch.utils import config as config_io
 
 # configs/qm8_lanczos_net.yaml, its model and dataset sections as written
 # (a test holds these literals to the file; the card has no YAML reader)
@@ -134,6 +156,8 @@ CORA_ADA_TRAIN = {
     "display_iter": 20,
 }
 CORA_ADA_SEED = 1234
+QM8_CONFIG = Path(__file__).resolve().parent / "configs" / "qm8_lanczos_net.yaml"
+QM8_EPOCHS = 4  # the depth cut: of max_epoch 30
 CITATION_EPOCHS = 12  # the depth cut: of max_epoch 200
 CORA_SHAPE = (2708, 1433, 7)  # nodes, features, classes: the real dataset's
 SERVE_BATCH = 64
@@ -462,6 +486,207 @@ def phase_serve(dev, smi: str) -> int:
     return launches
 
 
+def qm8_train_flops_per_graph(hidden, n, k, short, long_, edge_types, tasks, filter_hidden) -> float:
+    """Model FLOPs of one training step per graph (the analytic count of
+    ``bench.py:analytic_train_flops_per_graph``): 2 FLOPs a multiply-add
+    in the forward, times 3 for forward and backward; padding waste not
+    counted. At the flagship (hidden 128×3, N=32, K=20, short [1,2,3],
+    long [5,7,10,20,30], 4 edge types, 16 tasks, filter width 16) a
+    layer has 3·32²·128 (short chain) + 20·32·128 + 32·20·5·128 (VᵀX
+    and the long scales) + 5·20·48 (filter MLPs) + 4·32²·128 (edge
+    hops) + 32·(128·13)·128 (the layer's Dense) = 8,229,568 multiply-adds;
+    three layers and the readout's 32·128·17 give a forward of
+    49,516,672 FLOPs, and a step 148,550,016 FLOPs a graph."""
+    f = hidden[0]
+    parts = 1 + len(short) + len(long_) + edge_types
+    macs = 0.0
+    for dim in hidden:
+        macs += max(short) * n * n * f
+        macs += k * n * f + n * k * len(long_) * f
+        macs += len(long_) * k * (2 * filter_hidden + filter_hidden)
+        macs += edge_types * n * n * f
+        macs += n * (f * parts) * dim
+        f = dim
+    macs += n * f * (tasks + 1)
+    return 3.0 * 2.0 * macs
+
+
+def qm8_stage_breakdown(model, optimizer, batch, valid, reps: int = 20) -> dict:
+    """Host-clock milliseconds of each stage of one training step
+    (dropout on), each stage ended by a device synchronize; medians."""
+    times = {"forward": [], "loss": [], "backward": [], "optimizer": []}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times[name].append((t1 - t0) * 1e3)
+        return t1
+
+    model.train()
+    for _ in range(reps):
+        optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred = model(batch)
+        t = mark("forward", t)
+        loss = weighted_mae(pred, batch.label, valid)
+        t = mark("loss", t)
+        loss.backward()
+        t = mark("backward", t)
+        optimizer.step()
+        mark("optimizer", t)
+    return {name: float(np.median(v)) for name, v in times.items()}
+
+
+def read_metrics(run_dir: Path) -> list[dict]:
+    return [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def only_run_dir(exp_dir: Path, suffix: str) -> Path:
+    runs = sorted(p for p in exp_dir.glob(f"*/*{suffix}") if p.is_dir())
+    if len(runs) != 1:
+        raise SmokeFailure(f"expected one run directory ending in {suffix}, found {runs}")
+    return runs[0]
+
+
+def phase_qm8_train(dev, smi: str) -> int:
+    """Train the flagship through the CLI, test it with ``-t``, serve it
+    with ``Predictor.from_run_dir``. Returns the shared-memory kernel's
+    launches in the training run (the three packs)."""
+    cfg = config_io.loads(QM8_CONFIG.read_text())
+    mcfg, dcfg, tcfg = cfg["model"], cfg["dataset"], cfg["train"]
+    k, bs = int(mcfg["num_eig_vec"]), int(tcfg["batch_size"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qm8_") as tmp:
+        tmp = Path(tmp)
+        cut = {"train.max_epoch": (tcfg["max_epoch"], QM8_EPOCHS),
+               "exp_dir": (cfg.get("exp_dir"), str(tmp / "exp")),
+               "dataset.pack_cache": (dcfg.get("pack_cache"), False)}
+        tcfg["max_epoch"], cfg["exp_dir"], dcfg["pack_cache"] = (new for _, new in cut.values())
+        copy = tmp / "qm8_lanczos_net.yaml"
+        copy.write_text(config_io.dumps(cfg))
+
+        lanczos_cuda.launches.reset()
+        lanczos_cuda.stream_launches.reset()
+        t0 = time.perf_counter()
+        rc = cli.main(["-c", str(copy)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lanczos_cuda.launches.count
+        if rc != 0:
+            raise SmokeFailure(f"lanczosnet_torch.cli -c {copy} exited {rc}")
+        run_dir = only_run_dir(tmp / "exp", "_train")
+        recs = read_metrics(run_dir)
+        losses = [r["loss"] for r in recs if r["event"] == "epoch"]
+        gps = [r["graphs_per_sec"] for r in recs if r["event"] == "epoch"]
+        val = [r["mae"] for r in recs if r["event"] == "val"]
+        test_mae = [r["mae"] for r in recs if r["event"] == "test"]
+        packs = {r["split"]: r for r in recs if r["event"] == "pack"}
+        setup = [r for r in recs if r["event"] == "setup"]
+        chunks = sum(-(-r["graphs"] // RITZ_CHUNK) for r in packs.values())
+
+        # the packed test split's Ritz pairs against the plain version, in
+        # the pack's own chunk (the split is one chunk of 256 graphs)
+        test_graphs = synthetic_qm8_graphs(
+            int(dcfg["num_test"]), seed=int(dcfg.get("seed", 7)) + 2,
+            n_hi=min(int(dcfg["n_max"]), 28))
+        lanczos_cuda.launches.reset()
+        pack = pack_dataset(test_graphs, n_max=int(dcfg["n_max"]),
+                            operator_kind=dcfg["operator_kind"], num_eig_vec=k, device=dev)
+        pack_launches = lanczos_cuda.launches.count
+        ritz_err = {"ritz_val": 0.0, "ritz_vec": 0.0}
+        for lo in range(0, len(pack), RITZ_CHUNK):
+            s = torch.from_numpy(pack.ops[lo: lo + RITZ_CHUNK, 0]).to(dev).contiguous()
+            m = torch.from_numpy(pack.mask[lo: lo + RITZ_CHUNK]).to(dev)
+            alphas, betas, q, *_ = lanczos_tridiag_resid(s, m, k, EPS)
+            vals, vecs = ritz_from_tridiag(alphas, betas[:, : k - 1], q)
+            for name, got in (("ritz_val", vals), ("ritz_vec", vecs)):
+                want = torch.from_numpy(getattr(pack, name)[lo: lo + RITZ_CHUNK]).to(dev)
+                ritz_err[name] = max(ritz_err[name], float((got - want).abs().max()))
+            if max(ritz_err.values()) != 0.0:
+                kern = lanczos_cuda.lanczos_tridiag_cuda_resid(s, m, k, EPS)
+                tri = {o: float((a - b).abs().max()) for o, a, b in
+                       zip(OUTPUTS[:3], kern[:3], (alphas, betas, q))}
+                raise SmokeFailure(
+                    f"packed Ritz pairs differ from the plain version's: {ritz_err}; "
+                    f"kernel against plain version in alpha, beta, Q: {tri}")
+
+        # -t on the best checkpoint
+        best = run_dir / "checkpoints" / "best.pt"
+        cfg["test"] = {**(cfg.get("test") or {}), "test_model": str(best)}
+        copy_t = tmp / "qm8_lanczos_net_test.yaml"
+        copy_t.write_text(config_io.dumps(cfg))
+        rc_t = cli.main(["-c", str(copy_t), "-t"])
+        if rc_t != 0:
+            raise SmokeFailure(f"lanczosnet_torch.cli -c {copy_t} -t exited {rc_t}")
+        retest = [r["mae"] for r in read_metrics(only_run_dir(tmp / "exp", "_test"))
+                  if r["event"] == "test"]
+
+        # serve the run, against the restored model on the packed batches
+        pred = Predictor.from_run_dir(run_dir, device=dev)
+        mb = MicroBatcher(pred, max_delay_ms=5.0)
+        try:
+            futs = [mb.submit(g) for g in test_graphs]
+            served = np.stack([f.result(timeout=300) for f in futs])
+            serve_stats = mb.latency_stats()
+        finally:
+            mb.close()
+        model = pred.model
+        stats = pred.stats
+        restored = []
+        with torch.inference_mode():
+            for lo in range(0, len(pack), bs):
+                batch = pack.slice_batch(np.arange(lo, min(lo + bs, len(pack))))
+                batch = to_device(batch, dev)
+                restored.append(model(batch).cpu().numpy())
+        restored = np.concatenate(restored) * stats.std + stats.mean
+        serve_err = float(np.abs(served - restored).max())
+
+        # one training step at batch 64, by stage, and a profile of 5 steps
+        step_model = build_model({**mcfg, "num_atom": NUM_ATOM, "num_task": NUM_TASK})
+        step_model.load_state_dict(Checkpointer.restore_file(best)["model"])
+        step_model.to(dev)
+        batch = to_device(pack.slice_batch(np.arange(bs)), dev)
+        valid = torch.ones(bs, device=dev)
+        optimizer, scheduler, clip = build_optimizer(
+            step_model.parameters(), tcfg, int(dcfg["num_train"]) // bs)
+        train_step = make_train_step(step_model, optimizer, scheduler, clip)
+        step_ms = host_ms(lambda: train_step(batch, valid), 20, 3)
+        stages = qm8_stage_breakdown(step_model, optimizer, batch, valid)
+        trace = profile_train_steps(train_step, batch, valid, step_ms)
+
+    flops = qm8_train_flops_per_graph(
+        mcfg["hidden_dim"], int(dcfg["n_max"]), k, mcfg["short_diffusion_dist"],
+        mcfg["long_diffusion_dist"], 4, NUM_TASK, int(mcfg["filter_hidden_dim"]))
+    steady = float(np.median(gps[1:])) if len(gps) > 1 else float("nan")
+    emit(
+        "qm8_train", config=str(QM8_CONFIG.name), cut={k_: list(v) for k_, v in cut.items()},
+        epochs=len(losses), seconds=wall, epoch_loss=losses, val_mae=val, test_mae=test_mae,
+        retest_mae=retest, graphs_per_sec=gps, graphs_per_sec_steady=steady,
+        flops_per_graph=flops, mfu=steady * flops / FP32_FLOPS_PER_S,
+        mfu_peak="67 TFLOP/s, H100 SXM float32 outside the tensor cores (TF32 off)",
+        pack_seconds={s_: r["seconds"] for s_, r in packs.items()}, setup_seconds=setup,
+        lanczos_tridiag_launches=launches, ritz_chunks=chunks, test_pack_launches=pack_launches,
+        packed_ritz_max_abs_err_vs_plain=ritz_err, served_max_abs_err_vs_restored=serve_err,
+        serve_latency=serve_stats, tol=TOL, train_step_ms=step_ms, stage_ms=stages,
+        profiler=trace, nvidia_smi=smi,
+    )
+    if len(losses) != QM8_EPOCHS or not np.isfinite(losses).all():
+        raise SmokeFailure(f"epoch losses are not {QM8_EPOCHS} finite numbers: {losses}")
+    if not losses[-1] < losses[0]:
+        raise SmokeFailure(f"the loss did not fall: first {losses[0]}, last {losses[-1]}")
+    if len(val) != QM8_EPOCHS or not np.isfinite(val).all() or len(test_mae) != 1 \
+            or not np.isfinite(test_mae[0]):
+        raise SmokeFailure(f"validation {val} or test MAE {test_mae} is not finite")
+    if launches < chunks:
+        raise SmokeFailure(
+            f"the three packs ({chunks} chunks of {RITZ_CHUNK}) launched the kernel {launches} times")
+    if len(retest) != 1 or abs(retest[0] - test_mae[0]) > 1e-6:
+        raise SmokeFailure(f"-t gave test MAE {retest}, the training run {test_mae}")
+    if served.shape != restored.shape or not (np.isfinite(served).all() and serve_err <= TOL):
+        raise SmokeFailure(f"served answers differ from the restored model by {serve_err} > {TOL}")
+    return launches
+
+
 def citation_config(save_dir: str) -> dict:
     """The whole of ``configs/cora_ada_lanczos_net.yaml`` as a mapping,
     with the depth cut to ``CITATION_EPOCHS`` and every epoch logged."""
@@ -784,7 +1009,8 @@ def main() -> None:
     phase_build()
     barrier = phase_barrier(dev)
     kern = phase_kernel(dev, barrier["small_launch_ms"])
-    launches = phase_serve(dev, smi)
+    serve_launches = phase_serve(dev, smi)
+    pack_launches = phase_qm8_train(dev, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cora_") as run_dir:
         runner = CitationRunner(citation_config(run_dir), device=dev)
         stream = phase_stream_kernel(dev, runner, barrier)
@@ -797,7 +1023,8 @@ def main() -> None:
         "route": "cuda",
         "source": "lanczosnet_torch/csrc/lanczos_tridiag.cu",
         "replaces": "lanczosnet_tpu/ops/lanczos_pallas.py:81",
-        "launches": launches,
+        "launches": serve_launches + pack_launches,
+        "launches_by_path": {"serve": serve_launches, "qm8_train_packs": pack_launches},
         "max_abs_err": kern["max_abs_err"],
         "ms": t64["kernel_ms"],
         "kernel_ms": t64["kernel_ms"],

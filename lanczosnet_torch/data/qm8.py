@@ -1,13 +1,19 @@
-"""QM8-like synthetic molecular graphs.
+"""QM8 molecular graphs: the synthetic generator and the reference's
+pickled splits.
 
-A copy of ``lanczosnet_tpu/data/qm8.py:synthetic_qm8_graphs`` and its
-constants: the same seed gives the same graphs in both packages.
+Copies of ``lanczosnet_tpu/data/qm8.py:synthetic_qm8_graphs`` (with its
+constants: the same seed gives the same graphs in both packages) and of
+``import_reference_pickles``.
 
 Graph-dict schema: ``{"atom_type": [n] int, "adj": [E, n, n] float,
-"label": [T] float}``.
+"label": [T] float}``, and optionally ``"node_feat": [n, Fc] float``.
 """
 
 from __future__ import annotations
+
+import pickle
+from pathlib import Path
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -85,4 +91,76 @@ def synthetic_qm8_graphs(
         if label_noise > 0:
             label = label + rng.normal(scale=label_noise, size=label.shape).astype(np.float32)
         graphs.append({"atom_type": at, "adj": adj, "label": label})
+    return graphs
+
+
+def import_reference_pickles(path: str | Path) -> list[dict]:
+    """Convert a reference-format pickled split into our graph dicts.
+
+    The reference's preprocessing (SURVEY.md §3.5) pickles per-split
+    lists of per-molecule records carrying atom indices, per-bond-type
+    adjacency, and the QM8 target vector. Field names vary across
+    pickled versions, so we accept the common spellings; anything else
+    raises with the offending keys listed. Unpickling can run code:
+    open only splits from a source you trust.
+    """
+    with open(path, "rb") as f:
+        records: Iterable = pickle.load(f)
+
+    def pick(rec: dict, names: Sequence[str]):
+        for nm in names:
+            if nm in rec:
+                return rec[nm]
+        raise KeyError(
+            f"record keys {sorted(rec)} contain none of {names}; "
+            "pass data through a custom adapter"
+        )
+
+    graphs = []
+    for rec in records:
+        raw = np.asarray(pick(rec, ("node_feat", "atom_type", "atoms")))
+        node_feat = None
+        if raw.ndim == 2 and raw.shape[1] > 1:
+            # reference layout (see core/graph_batch.py docstring): the
+            # atom-type index rides in column 0 of node_feat, remaining
+            # columns are continuous per-node features — NOT one-hot.
+            atom = raw[:, 0]
+            node_feat = raw[:, 1:].astype(np.float32)
+        else:
+            atom = raw.squeeze()
+        adj = np.asarray(pick(rec, ("adj", "A", "L")))
+        if "adj" not in rec and "A" not in rec and "L" in rec:
+            # 'L' in the reference is the *normalized* operator stack;
+            # re-normalizing it in pack_dataset would corrupt values.
+            raise ValueError(
+                "record carries only the pre-normalized 'L' stack; export "
+                "raw per-edge-type adjacency ('adj'/'A') instead, or pack "
+                "with a custom adapter that skips re-normalization"
+            )
+        if adj.ndim == 2:
+            adj = adj[None]
+        # channel axis: the one whose size differs from the two equal
+        # node axes (handles both [E,n,n] and the reference's [n,n,E(+1)]);
+        # when all three sizes coincide (n == E), pick the layout whose
+        # per-channel matrices are symmetric — adjacency always is
+        if adj.ndim == 3:
+            if adj.shape[0] == adj.shape[1] == adj.shape[2]:
+                as_first = adj
+                as_last = np.moveaxis(adj, -1, 0)
+                sym_first = np.abs(as_first - as_first.transpose(0, 2, 1)).max()
+                sym_last = np.abs(as_last - as_last.transpose(0, 2, 1)).max()
+                adj = as_first if sym_first <= sym_last else as_last
+            elif adj.shape[0] == adj.shape[1] != adj.shape[2]:
+                adj = np.moveaxis(adj, -1, 0)
+        if adj.shape[1] != adj.shape[2]:
+            raise ValueError(f"cannot identify node axes in adj {adj.shape}")
+        label = np.asarray(pick(rec, ("label", "target", "y"))).reshape(-1)
+        graphs.append(
+            {
+                "atom_type": atom.astype(np.int32) + 1,  # our 0 = padding
+                "node_feat": node_feat,
+                "adj": adj.astype(np.float32),
+                "label": label.astype(np.float32),
+            }
+        )
     return graphs

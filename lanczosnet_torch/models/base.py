@@ -7,9 +7,10 @@ flax modules so ``weights.py`` can map one onto the other.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -27,6 +28,35 @@ def flatten_feature_stack(x: torch.Tensor) -> torch.Tensor:
 def edge_message_concat(ops: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Per-edge-type propagation ``[B,E,N,N]·[B,N,F]`` → ``[B,N,E·F]``."""
     return flatten_feature_stack(torch.einsum("beij,bjf->beif", ops, h))
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from ``generator`` when one is
+    set (a runner seeds one per run, on the model's device) and from
+    PyTorch's default stream otherwise."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate {p} is not in [0, 1)")
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            return F.dropout(x, self.p, training=True)
+        keep = 1.0 - self.p
+        scale = torch.empty_like(x).bernoulli_(keep, generator=self.generator).div_(keep)
+        return x * scale
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Draw every ``Dropout`` mask of ``model`` from ``generator``."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
 
 
 class OneHotEmbed(nn.Module):

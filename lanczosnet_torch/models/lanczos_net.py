@@ -31,6 +31,7 @@ from torch import nn
 from lanczosnet_torch.core.graph_batch import GraphBatch
 from lanczosnet_torch.models.base import (
     AttentionReadout,
+    Dropout,
     NodeEncoder,
     NodeHead,
     edge_message_concat,
@@ -187,7 +188,7 @@ class LanczosNet(nn.Module):
             layers.append(nn.Linear(d_in * (1 + channels), dim))
             d_in = dim
         self.layers = nn.ModuleList(layers)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         head = NodeHead if task == "node" else AttentionReadout
         self.readout = head(d_in, num_task, output_hidden_dim)
 

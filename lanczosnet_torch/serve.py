@@ -20,6 +20,8 @@ Counterpart of ``lanczosnet_tpu/serve.py``:
     mb = MicroBatcher(pred, max_delay_ms=5)
     y = mb.submit(graph).result()
     print(mb.latency_stats())         # {"p50_ms": ..., "p95_ms": ...}
+
+    pred = Predictor.from_run_dir("exp/qm8_lanczos_net/<run_id>")  # a trained run
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
+from pathlib import Path
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -35,9 +38,12 @@ import torch
 
 from lanczosnet_torch.core.graph_batch import GraphBatch
 from lanczosnet_torch.data.dataset import LabelStats
-from lanczosnet_torch.data.qm8 import synthetic_qm8_graphs
+from lanczosnet_torch.data.qm8 import NUM_TASK, synthetic_qm8_graphs
+from lanczosnet_torch.models import build_model
 from lanczosnet_torch.ops.lanczos_cuda import batched_lanczos_ritz_dispatch
 from lanczosnet_torch.ops.normalize import build_operator_stack
+from lanczosnet_torch.train.checkpoint import Checkpointer
+from lanczosnet_torch.utils.config import loads
 from lanczosnet_torch.utils.device import resolve_device
 
 
@@ -65,6 +71,41 @@ class Predictor:
         self.operator_kind = operator_kind
         self.stats = stats
         self.num_task = num_task
+
+    @classmethod
+    def from_run_dir(
+        cls,
+        run_dir: str | Path,
+        tag: str = "best",
+        batch_size: int = 64,
+        device: str | torch.device | None = None,
+    ) -> "Predictor":
+        """Serve a training run: its ``config.yaml`` and the snapshot
+        ``tag`` of its checkpoints, with the label width and the training
+        split's stats from the snapshot's meta (falling back to ``best``,
+        then ``latest``, for tags written without them)."""
+        run_dir = Path(run_dir)
+        cfg = loads((run_dir / "config.yaml").read_text())
+        dcfg, mcfg = cfg["dataset"], dict(cfg["model"])
+        ck = Checkpointer(run_dir)
+        metas = [ck.meta(t) or {} for t in (tag, "best", "latest")]
+        num_task = next((int(m["num_task"]) for m in metas if "num_task" in m),
+                        int(dcfg.get("num_task", NUM_TASK)))
+        stats = next((LabelStats(mean=np.asarray(m["label_mean"]), std=np.asarray(m["label_std"]))
+                      for m in metas[:2] if "label_mean" in m), None)
+        mcfg.setdefault("num_atom", int(dcfg.get("num_atom", 8)))
+        mcfg["num_task"] = num_task
+        return cls(
+            build_model(mcfg),
+            ck.restore(tag)["model"],
+            n_max=int(dcfg.get("n_max", 32)),
+            batch_size=batch_size,
+            num_eig_vec=int(mcfg.get("num_eig_vec", 20)) if mcfg["name"] == "LanczosNet" else 0,
+            operator_kind=dcfg.get("operator_kind", "sym"),
+            stats=stats,
+            num_task=num_task,
+            device=device,
+        )
 
     def warmup(self) -> None:
         """Run one dummy request through each wire, so the first real
@@ -257,6 +298,13 @@ class MicroBatcher:
             "mean_batch_size": float(sizes.mean()) if sizes.size else 0.0,
             "max_batch_size": int(sizes.max()) if sizes.size else 0,
         }
+
+    def log_stats(self, metrics) -> dict:
+        """Append the current latency stats to a ``MetricsLogger`` as a
+        ``serving_latency`` event."""
+        stats = self.latency_stats()
+        metrics.log("serving_latency", **stats)
+        return stats
 
     def close(self) -> None:
         """Stop both threads; fail every request not yet answered."""

@@ -1,0 +1,456 @@
+"""Experiment runner for graph regression (the QM8 configs).
+
+Counterpart of ``lanczosnet_tpu/train/runner.py`` on one device: builds
+the three packed splits, the model and the optimizer from a config; runs
+the epochs with validation every ``valid_epoch``; keeps the best (on
+validation MAE) and the latest checkpoint; resumes; tests the best
+snapshot. Metrics go to the log and to ``metrics.jsonl`` (events
+``epoch``, ``train``, ``val``, ``test``, with the JAX runner's fields;
+``pack``, the seconds each split took to pack, and ``setup``, the
+seconds of the optimizer's set-up and of the resident splits' copy).
+
+    runner = QM8Runner(config)             # on the card
+    runner = QM8Runner(config, "cpu")      # where the caller asks
+    runner.train(); runner.test()
+
+``config`` is a mapping with the keys of ``configs/qm8_*.yaml`` and a
+``save_dir`` (``utils/config.py:load_config`` mints one). With
+``train.scan_epoch`` true, or ``auto`` and a training split under 2 GiB,
+the splits stay on the device and each epoch is gathered there
+(``train/scan_epoch.py``); otherwise batches stream from the host
+through ``data/loader.py``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import tempfile
+import time
+from pathlib import Path
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from lanczosnet_torch.data.dataset import (
+    PACK_FORMAT_VERSION,
+    PackedDataset,
+    load_packed,
+    pack_dataset,
+    save_packed,
+)
+from lanczosnet_torch.data.loader import BatchLoader, prefetch_to_device
+from lanczosnet_torch.data.qm8 import import_reference_pickles, synthetic_qm8_graphs
+from lanczosnet_torch.models import build_model
+from lanczosnet_torch.models.base import set_dropout_generator
+from lanczosnet_torch.train.checkpoint import Checkpointer
+from lanczosnet_torch.train.optim import build_optimizer
+from lanczosnet_torch.train.scan_epoch import (
+    SHUFFLE_SEED_OFFSET,
+    ResidentEval,
+    device_dataset,
+    device_permutation,
+    host_permutation,
+    train_epoch,
+)
+from lanczosnet_torch.train.step import make_eval_step, make_train_step
+from lanczosnet_torch.utils.device import resolve_device
+from lanczosnet_torch.utils.logger import MetricsLogger, get_logger
+
+SPLITS = ("train", "val", "test")
+SCAN_BYTES_MAX = 2 * 1024**3
+
+# options of the JAX runner that the port refuses, with the ROADMAP
+# item that ports them: (section, key, refused when)
+_NOT_PORTED = (
+    ("dataset", "buckets", bool, "A12 (data/buckets.py)"),
+    ("train", "bucket_pair", bool, "A12 (data/buckets.py)"),
+    ("train", "tp", lambda v: int(v) > 1, "A11"),
+    ("train", "num_devices", lambda v: int(v) > 1, "A11"),
+    ("train", "profile", bool, "A12"),
+    ("train", "tensorboard", bool, "A12"),
+)
+
+
+def pack_cache_root() -> Path:
+    """The port's own pack cache: its Ritz pairs differ from the JAX
+    package's in sign and at breakdown, so the two never share packs."""
+    root = os.environ.get("LANCZOSNET_TORCH_CACHE")
+    return Path(root) if root else Path.home() / ".cache" / "lanczosnet_torch"
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class QM8Runner:
+    """Config-driven molecular regression on one device."""
+
+    def __init__(self, config: Mapping, device: str | torch.device | None = None):
+        for section, key, refused, item in _NOT_PORTED:
+            value = (config.get(section) or {}).get(key)
+            if value is not None and refused(value):
+                raise NotImplementedError(
+                    f"{section}.{key}={value!r} is not ported yet (ROADMAP {item})"
+                )
+        self.config = config
+        self.device = resolve_device(device)
+        self.log = get_logger()
+        self.run_dir = Path(config["save_dir"])
+        self.metrics = MetricsLogger(self.run_dir / "metrics.jsonl")
+        self.ckpt = Checkpointer(self.run_dir)
+        self.seed = int(config.get("seed", 1234))
+
+        dcfg = config["dataset"]
+        mcfg = dict(config["model"])
+        self.num_eig_vec = int(mcfg.get("num_eig_vec", 20)) if mcfg["name"] == "LanczosNet" else 0
+        self.num_cluster = int(mcfg.get("num_partition", 2)) if mcfg["name"] == "GPNN" else 0
+        self.datasets = self._build_datasets(dcfg)
+        train = self.datasets["train"]
+        self.stats = train.stats
+
+        mcfg.setdefault("num_atom", int(dcfg.get("num_atom", 8)))
+        mcfg["num_task"] = train.label.shape[-1]
+        # widths that flax infers from the first batch
+        mcfg["num_edge_type"] = train.ops.shape[1] - 1
+        mcfg["node_feat_dim"] = train.node_feat.shape[-1]
+        self.model = build_model(mcfg)
+        self.model.init_weights(torch.Generator().manual_seed(self.seed))
+        self.model.to(self.device)
+        self.log.info(
+            "runner: model=%s device=%s batch=%d train/val/test=%d/%d/%d n_max=%d",
+            mcfg["name"], self.device, int(config["train"]["batch_size"]),
+            len(train), len(self.datasets["val"]), len(self.datasets["test"]), train.n_max,
+        )
+
+    # ---------------------------------------------------------------- data
+    def _build_datasets(self, dcfg: Mapping) -> dict[str, PackedDataset]:
+        """Three packed splits from ``dataset.source``: ``synthetic``
+        (QM8-like graphs from a seed), ``packed`` (npz paths) or
+        ``reference_pickle`` (the reference's per-split pickles). What
+        this packs persists in the pack cache, keyed by every field that
+        decides its content; ``dataset.pack_cache: false`` opts out."""
+        source = dcfg.get("source", "synthetic")
+        kind = dcfg.get("operator_kind", "sym")
+        n_max = int(dcfg.get("n_max", 32))
+        if source == "packed":
+            return {s: load_packed(dcfg[f"{s}_path"]) for s in SPLITS}
+        if source == "synthetic":
+            counts = {
+                "train": int(dcfg.get("num_train", 2048)),
+                "val": int(dcfg.get("num_val", 256)),
+                "test": int(dcfg.get("num_test", 256)),
+            }
+            seed0 = int(dcfg.get("seed", 7))
+            raw = {
+                s: (lambda s=s, i=i: synthetic_qm8_graphs(
+                    counts[s], seed=seed0 + i, n_hi=min(n_max, 28)))
+                for i, s in enumerate(SPLITS)
+            }
+            cache_key = {"counts": counts, "seed": seed0}
+        elif source == "reference_pickle":
+            raw = {s: (lambda s=s: import_reference_pickles(dcfg[f"{s}_path"])) for s in SPLITS}
+            try:
+                # path, mtime in ns, inode and size: a rewrite shows
+                cache_key = {}
+                for s in SPLITS:
+                    st = os.stat(dcfg[f"{s}_path"])
+                    cache_key[s] = [dcfg[f"{s}_path"], st.st_mtime_ns, st.st_ino, st.st_size]
+            except OSError:
+                cache_key = None
+        else:
+            raise ValueError(f"unknown dataset source {source!r}")
+        standardize = bool(dcfg.get("standardize", True))
+
+        cache_dir = None
+        if cache_key is not None and bool(dcfg.get("pack_cache", True)):
+            payload = json.dumps({
+                "format": PACK_FORMAT_VERSION, "source": source, "key": cache_key,
+                "n_max": n_max, "kind": kind, "num_eig_vec": self.num_eig_vec,
+                "num_cluster": self.num_cluster, "standardize": standardize,
+            }, sort_keys=True)
+            digest = hashlib.sha1(payload.encode()).hexdigest()[:16]
+            cache_dir = pack_cache_root() / "packs" / digest
+
+        out: dict[str, PackedDataset] = {}
+        stats = None
+        for s in SPLITS:
+            path = cache_dir / f"{s}.npz" if cache_dir else None
+            if path is not None and path.exists():
+                out[s] = load_packed(path)
+                stats = out[s].stats or stats
+                self.log.info("pack cache hit for %s: %s", s, path)
+                continue
+            t0 = time.perf_counter()
+            out[s] = pack_dataset(
+                raw[s](), n_max=n_max, operator_kind=kind, num_eig_vec=self.num_eig_vec,
+                num_cluster=self.num_cluster, stats=stats, standardize=standardize,
+                device=self.device,
+            )
+            stats = out[s].stats or stats
+            seconds = time.perf_counter() - t0
+            self.log.info("packed %s: %d graphs in %.2fs", s, len(out[s]), seconds)
+            self.metrics.log("pack", split=s, graphs=len(out[s]), seconds=seconds)
+            if path is not None:
+                path.parent.mkdir(parents=True, exist_ok=True)
+                # the suffix ends in .npz, or np.savez would append one
+                fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".tmp.npz")
+                os.close(fd)
+                try:
+                    save_packed(out[s], tmp)
+                    os.replace(tmp, path)
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
+        return out
+
+    def _loader(self, split: str, shuffle: bool, drop_last: bool) -> BatchLoader:
+        return BatchLoader(
+            self.datasets[split], batch_size=int(self.config["train"]["batch_size"]),
+            shuffle=shuffle, drop_last=drop_last, seed=self.seed,
+        )
+
+    # ---------------------------------------------------------------- eval
+    def _mae(self, esum, count) -> np.ndarray:
+        """Per-task MAE in original label units from the error sums."""
+        mae = np.asarray(esum, np.float64) / max(float(count), 1.0)
+        return self.stats.unstandardize_mae(mae) if self.stats is not None else mae
+
+    def _evaluate(self, eval_step, split: str) -> np.ndarray:
+        """Exact per-task MAE over a split, batches streamed from the host."""
+        esum, count = 0.0, 0.0
+        loader = self._loader(split, shuffle=False, drop_last=False)
+        for batch, valid in prefetch_to_device(loader.epoch(), self.device):
+            e, c = eval_step(batch, valid)
+            esum, count = esum + e, count + c
+        return self._mae(esum.cpu().numpy(), float(count))
+
+    # ---------------------------------------------------------------- state
+    def _state(self, optimizer, scheduler) -> dict:
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": optimizer.state_dict(),
+            "scheduler": scheduler.state_dict(),
+        }
+
+    def _load_state(self, state: dict, optimizer=None, scheduler=None) -> None:
+        self.model.load_state_dict(state["model"], strict=True)
+        if optimizer is not None:
+            optimizer.load_state_dict(state["optimizer"])
+            scheduler.load_state_dict(state["scheduler"])
+
+    def _best_meta(self, epoch: int, val_mae: Optional[float] = None) -> dict:
+        """Snapshot metadata: with the label width and the training
+        split's stats, ``serve.Predictor.from_run_dir`` rebuilds the head
+        and answers in original units."""
+        meta = {"epoch": epoch, "num_task": int(self.datasets["train"].label.shape[-1])}
+        if val_mae is not None:
+            meta["val_mae"] = val_mae
+        if self.stats is not None:
+            meta["label_mean"] = np.asarray(self.stats.mean).tolist()
+            meta["label_std"] = np.asarray(self.stats.std).tolist()
+        return meta
+
+    # ---------------------------------------------------------------- train
+    def _scan_mode(self) -> bool:
+        """``train.scan_epoch``: true, false, or auto (resident when the
+        training split's large fields are under 2 GiB: the resident split
+        and one epoch's gathered copy must stay a small part of memory)."""
+        mode = self.config["train"].get("scan_epoch", "auto")
+        if isinstance(mode, bool):
+            return mode
+        ds = self.datasets["train"]
+        nbytes = sum(getattr(ds, f).nbytes for f in ("ops", "node_feat", "ritz_vec")
+                     if getattr(ds, f) is not None)
+        return nbytes < SCAN_BYTES_MAX
+
+    def train(self) -> dict:
+        return self._train_scanned() if self._scan_mode() else self._train_per_step()
+
+    def _start(self, steps_per_epoch: int):
+        """Optimizer, schedule and the dropout stream; the state of
+        ``latest`` (``train.is_resume``) or of ``train.resume_model``.
+        → (optimizer, scheduler, train_step, first epoch, best val MAE)."""
+        tcfg = self.config["train"]
+        optimizer, scheduler, clip = build_optimizer(
+            self.model.parameters(), tcfg, steps_per_epoch
+        )
+        set_dropout_generator(
+            self.model, torch.Generator(device=self.device).manual_seed(self.seed)
+        )
+        start_epoch, best_val = 0, float("inf")
+        if tcfg.get("is_resume") and self.ckpt.exists("latest"):
+            self._load_state(self.ckpt.restore("latest", self.device), optimizer, scheduler)
+            start_epoch = int((self.ckpt.meta("latest") or {}).get("epoch", -1)) + 1
+            best_val = float((self.ckpt.meta("best") or {}).get("val_mae", float("inf")))
+            self.log.info("resumed from epoch %d (best val so far %.6f)", start_epoch, best_val)
+        elif tcfg.get("resume_model"):
+            self._load_state(Checkpointer.restore_file(tcfg["resume_model"], self.device))
+            self.log.info("warm-started from %s", tcfg["resume_model"])
+        train_step = make_train_step(self.model, optimizer, scheduler, clip)
+        return optimizer, scheduler, train_step, start_epoch, best_val
+
+    def _validated(self, epoch: int, val_mae: np.ndarray, best_val: float, state: dict) -> float:
+        """Log a validation and keep ``best`` → the best val MAE so far."""
+        mean_mae = float(val_mae.mean())
+        self.metrics.log("val", epoch=epoch, mae=mean_mae, per_task=val_mae.tolist())
+        if mean_mae < best_val:
+            best_val = mean_mae
+            self.ckpt.save("best", state, self._best_meta(epoch, mean_mae))
+        return best_val
+
+    def _saved(self, epoch: int, state: dict) -> None:
+        """``latest``, and the ``epoch_<n>`` tag every ``snapshot_epoch``."""
+        self.ckpt.save("latest", state, self._best_meta(epoch))
+        snap = int(self.config["train"].get("snapshot_epoch", 0))
+        if snap and (epoch + 1) % snap == 0:
+            self.ckpt.save(f"epoch_{epoch}", state, self._best_meta(epoch))
+
+    def _tested(self, best_val: float, test_mae_of) -> dict:
+        """Restore ``best`` and test it → the result of ``train()``."""
+        test_mae = None
+        if self.ckpt.exists("best"):
+            self._load_state(self.ckpt.restore("best", self.device))
+            test_mae = float(test_mae_of().mean())
+            self.log.info("best val %.6f | test MAE %.6f", best_val, test_mae)
+            self.metrics.log("test", mae=test_mae, best_val=best_val)
+        return {"best_val_mae": best_val, "test_mae": test_mae}
+
+    def _train_scanned(self) -> dict:
+        """The splits resident on the device; the epochs between two
+        validations run without a host sync, and the group's losses and
+        validation sums are fetched together."""
+        tcfg = self.config["train"]
+        bs = int(tcfg["batch_size"])
+        g = len(self.datasets["train"])
+        steps = g // bs
+        if steps == 0:
+            raise ValueError(f"train.batch_size={bs} exceeds the train split ({g} graphs)")
+        t0 = time.perf_counter()
+        optimizer, scheduler, train_step, epoch, best_val = self._start(steps)
+        eval_step = make_eval_step(self.model)
+        t1 = time.perf_counter()
+        data = device_dataset(self.datasets["train"], self.device)
+        val_eval = ResidentEval(device_dataset(self.datasets["val"], self.device), bs)
+        _sync(self.device)
+        self.metrics.log("setup", optimizer_s=t1 - t0, resident_s=time.perf_counter() - t1)
+        device_shuffle = bool(tcfg.get("device_shuffle", True))
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + SHUFFLE_SEED_OFFSET)
+        rng = np.random.Generator(np.random.Philox(self.seed))
+        valid_every = int(tcfg.get("valid_epoch", 1))
+        max_epoch = int(tcfg.get("max_epoch", 10))
+        self.log.info("resident epochs: %d steps/epoch on %s", steps, self.device)
+        while epoch < max_epoch:
+            group = min(valid_every, max_epoch - epoch)
+            t0 = time.perf_counter()
+            losses = []
+            for _ in range(group):
+                perm = (device_permutation(gen, g, bs, self.device) if device_shuffle
+                        else host_permutation(rng, g, bs, self.device))
+                losses.append(train_epoch(train_step, data, perm))
+            esum, count = val_eval(eval_step)
+            # the group's one host sync
+            fetched = torch.cat([torch.stack(losses).flatten(), esum, count[None]]).cpu().numpy()
+            group_time = time.perf_counter() - t0
+            epoch_time, gps = group_time / group, group * steps * bs / group_time
+            per_epoch = fetched[: group * steps].reshape(group, steps).mean(1)
+            val_mae = self._mae(fetched[group * steps : -1], fetched[-1])
+            for i, lv in enumerate(per_epoch):
+                self.metrics.log("epoch", epoch=epoch + i, loss=float(lv),
+                                 epoch_time_s=epoch_time, graphs_per_sec=gps)
+            epoch += group
+            self.log.info(
+                "epoch %d | loss %.6f | val MAE %.6f | %.0f graphs/s | %.3fs/epoch | lr %.2e",
+                epoch - 1, float(per_epoch[-1]), float(val_mae.mean()), gps, epoch_time,
+                scheduler.get_last_lr()[0],
+            )
+            state = self._state(optimizer, scheduler)
+            best_val = self._validated(epoch - 1, val_mae, best_val, state)
+            self._saved(epoch - 1, state)
+
+        def test_mae() -> np.ndarray:
+            test_eval = ResidentEval(device_dataset(self.datasets["test"], self.device), bs)
+            esum, count = test_eval(eval_step)
+            return self._mae(esum.cpu().numpy(), float(count))
+
+        return self._tested(best_val, test_mae)
+
+    def _train_per_step(self) -> dict:
+        """Batches streamed from the host, one step at a time."""
+        tcfg = self.config["train"]
+        loader = self._loader("train", shuffle=bool(tcfg.get("shuffle", True)), drop_last=True)
+        steps = len(loader)
+        if steps == 0:
+            raise ValueError(
+                f"train.batch_size={tcfg['batch_size']} exceeds the train split "
+                f"({len(self.datasets['train'])} graphs)"
+            )
+        optimizer, scheduler, train_step, start_epoch, best_val = self._start(steps)
+        eval_step = make_eval_step(self.model)
+        display_iter = int(tcfg.get("display_iter", 50))
+        valid_every = int(tcfg.get("valid_epoch", 1))
+        max_epoch = int(tcfg.get("max_epoch", 10))
+        for epoch in range(start_epoch, max_epoch):
+            t0 = time.perf_counter()
+            for it, (batch, valid) in enumerate(prefetch_to_device(loader.epoch(), self.device)):
+                loss = train_step(batch, valid)
+                if (it + 1) % display_iter == 0 or it + 1 == steps:
+                    lv = float(loss)  # waits for the step: only at display points
+                    step = scheduler.last_epoch
+                    self.log.info("epoch %d it %d | loss %.6f | lr %.2e",
+                                  epoch, it + 1, lv, scheduler.get_last_lr()[0])
+                    self.metrics.log("train", epoch=epoch, step=step, loss=lv)
+            _sync(self.device)
+            epoch_time = time.perf_counter() - t0
+            gps = steps * int(tcfg["batch_size"]) / epoch_time
+            self.metrics.log("epoch", epoch=epoch, epoch_time_s=epoch_time, graphs_per_sec=gps)
+            state = self._state(optimizer, scheduler)
+            if (epoch + 1) % valid_every == 0 or epoch == max_epoch - 1:
+                val_mae = self._evaluate(eval_step, "val")
+                self.log.info("epoch %d | val MAE %.6f | %.1f graphs/s | %.2fs/epoch",
+                              epoch, float(val_mae.mean()), gps, epoch_time)
+                best_val = self._validated(epoch, val_mae, best_val, state)
+            self._saved(epoch, state)
+        return self._tested(best_val, lambda: self._evaluate(eval_step, "test"))
+
+    # ---------------------------------------------------------------- test
+    def test(self) -> dict:
+        """Test a snapshot: ``test.test_model``, else this run's ``best``."""
+        path = (self.config.get("test") or {}).get("test_model")
+        if path:
+            state = Checkpointer.restore_file(path, self.device)
+        elif self.ckpt.exists("best"):
+            state = self.ckpt.restore("best", self.device)
+        else:
+            raise FileNotFoundError("no checkpoint: set test.test_model or train first")
+        self._load_state(state)
+        mae = self._evaluate(make_eval_step(self.model), "test")
+        mean = float(mae.mean())
+        self.log.info("test MAE %.6f (per-task %s)", mean, np.round(mae, 6).tolist())
+        self.metrics.log("test", mae=mean, per_task=mae.tolist())
+        return {"test_mae": mean, "per_task": mae.tolist()}
+
+
+def _citation_runner(config, device=None):
+    from lanczosnet_torch.train.citation_runner import CitationRunner
+
+    return CitationRunner(config, device)
+
+
+RUNNER_REGISTRY = {"QM8Runner": QM8Runner, "CitationRunner": _citation_runner}
+_RUNNERS_NOT_PORTED = {"SparseCitationRunner": "A10"}
+
+
+def build_runner(config: Mapping, device: str | torch.device | None = None):
+    """The runner that ``config['runner']`` names (QM8Runner by default)."""
+    name = config.get("runner", "QM8Runner")
+    if name in _RUNNERS_NOT_PORTED:
+        raise NotImplementedError(
+            f"runner {name!r} is not ported yet (ROADMAP {_RUNNERS_NOT_PORTED[name]})"
+        )
+    if name not in RUNNER_REGISTRY:
+        raise KeyError(f"unknown runner {name!r}; available: {sorted(RUNNER_REGISTRY)}")
+    return RUNNER_REGISTRY[name](config, device)

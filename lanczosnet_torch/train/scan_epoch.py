@@ -1,0 +1,130 @@
+"""Device-resident epochs, the fast path of QM8 training.
+
+Counterpart of ``lanczosnet_tpu/train/scan_epoch.py``. A packed split
+goes to the device once and stays there for the run. Each epoch's
+shuffled batches are taken from it by one flat row gather per field
+(``index_select`` on the ``[G, -1]`` view, reshaped to ``[steps, B,
+...]``), and the steps run back to back on slices of that copy. Losses
+stay on the device until the caller fetches them, once per validation
+interval; validation runs over fixed ``idx``/``valid`` tables whose
+batches are gathered once.
+
+Where the JAX package compiles a whole group of epochs into one
+``lax.scan`` program, the port launches each step's kernels from
+Python; the host never waits for the device inside a group.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from lanczosnet_torch.core.graph_batch import GraphBatch
+from lanczosnet_torch.data.dataset import PackedDataset
+
+# the device shuffle stream's seed is the run's seed plus this, as in
+# lanczosnet_tpu/train/runner.py
+SHUFFLE_SEED_OFFSET = 0x5E1F
+
+
+def _map(batch: GraphBatch, fn: Callable[[torch.Tensor], torch.Tensor]) -> GraphBatch:
+    return GraphBatch(**{
+        f.name: None if getattr(batch, f.name) is None else fn(getattr(batch, f.name))
+        for f in dataclasses.fields(batch)
+    })
+
+
+def device_dataset(ds: PackedDataset, device: torch.device) -> GraphBatch:
+    """A packed split on ``device`` as one ``GraphBatch`` whose leading
+    axis is the whole split, copied once."""
+    return _map(ds.slice_batch(slice(None)), lambda t: t.to(device))
+
+
+def gather_batch(data: GraphBatch, idx: torch.Tensor) -> GraphBatch:
+    """The graphs ``idx [B]`` of a resident split."""
+    return _map(data, lambda x: x.index_select(0, idx))
+
+
+def shuffle_epoch(data: GraphBatch, perm: torch.Tensor) -> GraphBatch:
+    """One epoch's batches ``[steps, B, ...]`` for the index table
+    ``perm [steps, B]``, by one flat row gather per field: batch s is
+    ``gather_batch(data, perm[s])``."""
+    flat = perm.reshape(-1)
+
+    def take(x: torch.Tensor) -> torch.Tensor:
+        rows = x.flatten(1) if x.dim() > 1 else x
+        return rows.index_select(0, flat).view(tuple(perm.shape) + tuple(x.shape[1:]))
+
+    return _map(data, take)
+
+
+def batch_at(batches: GraphBatch, step: int) -> GraphBatch:
+    """Batch ``step`` of ``shuffle_epoch``'s output (views, no copy)."""
+    return _map(batches, lambda x: x[step])
+
+
+def device_permutation(
+    generator: torch.Generator, num_graphs: int, batch_size: int, device: torch.device
+) -> torch.Tensor:
+    """One epoch's ``[steps, B]`` index table, drawn on ``device`` from
+    ``generator``; the ``num_graphs % B`` graphs left over sit out the
+    epoch, as in the JAX package."""
+    steps = num_graphs // batch_size
+    perm = torch.randperm(num_graphs, generator=generator, device=device)
+    return perm[: steps * batch_size].view(steps, batch_size)
+
+
+def host_permutation(
+    rng: np.random.Generator, num_graphs: int, batch_size: int, device: torch.device
+) -> torch.Tensor:
+    """The same table from the host's Philox stream, drawn as
+    ``lanczosnet_tpu/train/runner.py`` draws it with
+    ``train.device_shuffle: false``."""
+    steps = num_graphs // batch_size
+    perm = rng.permutation(num_graphs)[: steps * batch_size].reshape(steps, batch_size)
+    return torch.from_numpy(perm).to(device)
+
+
+def train_epoch(
+    train_step: Callable[[GraphBatch, torch.Tensor], torch.Tensor],
+    data: GraphBatch,
+    perm: torch.Tensor,
+) -> torch.Tensor:
+    """Run one epoch's steps over ``shuffle_epoch(data, perm)`` → the
+    losses ``[steps]``, on the device and not waited for."""
+    batches = shuffle_epoch(data, perm)
+    valid = torch.ones(perm.shape[1], device=perm.device)
+    return torch.stack([train_step(batch_at(batches, s), valid) for s in range(perm.shape[0])])
+
+
+def eval_tables(num_graphs: int, batch_size: int, device: torch.device):
+    """Fixed ``idx``/``valid`` tables ``[S, B]`` that cover a split once in
+    order; the tail is padded with graph 0 at weight 0."""
+    steps = -(-num_graphs // batch_size)
+    idx = torch.zeros(steps * batch_size, dtype=torch.long)
+    valid = torch.zeros(steps * batch_size)
+    idx[:num_graphs] = torch.arange(num_graphs)
+    valid[:num_graphs] = 1.0
+    shape = (steps, batch_size)
+    return idx.view(shape).to(device), valid.view(shape).to(device)
+
+
+class ResidentEval:
+    """Per-task |err| sums and the count over a resident split, its
+    batches gathered once: ``(eval_step) → (esum [T], count)`` on the
+    device."""
+
+    def __init__(self, data: GraphBatch, batch_size: int):
+        self.idx, self.valid = eval_tables(data.mask.shape[0], batch_size, data.mask.device)
+        self.batches = shuffle_epoch(data, self.idx)
+
+    def __call__(self, eval_step) -> tuple[torch.Tensor, torch.Tensor]:
+        esum: Optional[torch.Tensor] = None
+        count: Optional[torch.Tensor] = None
+        for s in range(self.idx.shape[0]):
+            e, c = eval_step(batch_at(self.batches, s), self.valid[s])
+            esum, count = (e, c) if esum is None else (esum + e, count + c)
+        return esum, count

@@ -12,22 +12,30 @@ machine does not have.) Each kernel and its plain version take every
 sum in the same order and round every operation alike. The
 shared-memory kernel (N ≤ 128) is held to exact agreement; the streamed
 kernel (N > 128) to its contract, 1e-4 on all six outputs and the same
-breakdown step, and the test prints the error it found.
+breakdown step, and the test prints the error it found. Packing on the
+card launches the shared-memory kernel once per chunk of 256 graphs and
+gives the plain version's Ritz pairs exactly; ``QM8Runner``'s resident
+epochs and its per-step path agree on the card (1e-6).
 """
 
+import json
 import threading
 
 import numpy as np
 import pytest
 import torch
 
+from lanczosnet_torch.data.dataset import pack_dataset
+from lanczosnet_torch.data.qm8 import synthetic_qm8_graphs
 from lanczosnet_torch.ops import _build, lanczos_cuda
 from lanczosnet_torch.ops.lanczos import lanczos_tridiag_resid, lanczos_tridiag_resid_stream
 from lanczosnet_torch.ops.lanczos_cuda import (
     LanczosTridiag,
     batched_lanczos_ritz_dispatch,
     lanczos_tridiag_cuda_resid,
+    ritz_from_tridiag,
 )
+from lanczosnet_torch.train.runner import QM8Runner
 
 pytestmark = pytest.mark.cuda
 
@@ -239,3 +247,66 @@ def test_backward_through_either_kernel_matches_plain_forward(card, n):
     assert torch.isfinite(grads[0]).all()
     scale = float(grads[1].abs().max())
     torch.testing.assert_close(grads[0] / scale, grads[1] / scale, rtol=0, atol=1e-4)
+
+
+def test_pack_on_the_card_runs_the_kernel_per_chunk(card):
+    """300 graphs are two chunks of 256 (the tail padded): two launches.
+    The operators equal the CPU pack's (1e-6, one float32 formula) and
+    the Ritz pairs the plain version's on the card, chunk by chunk,
+    exactly."""
+    graphs = synthetic_qm8_graphs(300, seed=5)
+    before = lanczos_cuda.launches.count
+    got = pack_dataset(graphs, n_max=32, num_eig_vec=20, device=card)
+    assert lanczos_cuda.launches.count == before + 2
+    cpu = pack_dataset(graphs, n_max=32, device="cpu")
+    np.testing.assert_allclose(got.ops, cpu.ops, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.mask, cpu.mask)
+    np.testing.assert_array_equal(got.atom_type, cpu.atom_type)
+    for lo in (0, 256):
+        s = torch.from_numpy(got.ops[lo: lo + 256, 0]).to(card)
+        m = torch.from_numpy(got.mask[lo: lo + 256]).to(card)
+        if s.shape[0] < 256:  # the pack's padded tail chunk
+            pad = 256 - s.shape[0]
+            s = torch.cat([s, s.new_zeros((pad, 32, 32))])
+            m = torch.cat([m, m.new_zeros((pad, 32))])
+        a, b, q, *_ = lanczos_tridiag_resid(s, m, 20)
+        d, v = ritz_from_tridiag(a, b[:, :19], q)
+        real = min(256, 300 - lo)
+        assert torch.equal(d[:real].cpu(), torch.from_numpy(got.ritz_val[lo: lo + real]))
+        assert torch.equal(v[:real].cpu(), torch.from_numpy(got.ritz_vec[lo: lo + real]))
+
+
+def tiny_qm8_config(save_dir, **train) -> dict:
+    return {
+        "exp_name": "qm8_tiny", "runner": "QM8Runner", "seed": 1234, "save_dir": str(save_dir),
+        "dataset": {"source": "synthetic", "n_max": 16, "num_atom": 8, "num_train": 96,
+                    "num_val": 40, "num_test": 40, "standardize": True, "operator_kind": "sym",
+                    "pack_cache": False},
+        "train": {"optimizer": "Adam", "lr": 1e-3, "batch_size": 16, "max_epoch": 2,
+                  "valid_epoch": 1, "display_iter": 2, **train},
+        "test": {"test_model": None},
+        "model": {"name": "LanczosNet", "hidden_dim": [16, 16], "embed_dim": 16,
+                  "short_diffusion_dist": [1, 2], "long_diffusion_dist": [3, 5],
+                  "num_eig_vec": 8, "spectral_filter_kind": "MLP", "filter_hidden_dim": 8,
+                  "dropout": 0.1},
+    }
+
+
+def test_resident_epochs_on_the_card_equal_the_per_step_path(card, tmp_path):
+    """With the host's shuffle stream both paths take the same batches,
+    and the same dropout stream: equal validation MAE (1e-6). The device
+    shuffle trains too. The packs launched the kernel once a split."""
+    vals = {}
+    for name, train in {"resident": {"scan_epoch": True, "device_shuffle": False},
+                        "per-step": {"scan_epoch": False},
+                        "device-shuffle": {"scan_epoch": True}}.items():
+        before = lanczos_cuda.launches.count
+        runner = QM8Runner(tiny_qm8_config(tmp_path / name, **train), device=card)
+        assert lanczos_cuda.launches.count == before + 3
+        res = runner.train()
+        recs = [json.loads(ln) for ln in (tmp_path / name / "metrics.jsonl").read_text().splitlines()]
+        vals[name] = [r["mae"] for r in recs if r["event"] == "val"]
+        assert len(vals[name]) == 2 and np.isfinite(vals[name]).all()
+        assert np.isfinite(res["test_mae"])
+        assert runner.test()["test_mae"] == pytest.approx(res["test_mae"], abs=1e-6)
+    np.testing.assert_allclose(vals["resident"], vals["per-step"], rtol=0, atol=1e-6)
