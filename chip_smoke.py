@@ -6,7 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: a CUDA card must be visible; TF32 is switched off for
-   matmuls and cuDNN, and the card's name and power limit are printed.
+   matmuls and cuDNN, and the card's name and power limit are printed,
+   with the bfloat16 reduced-precision flag as the process has it and
+   as the train, eval and serving steps run it (off).
 2. build: both kernels are built with nvcc from
    ``lanczosnet_torch/csrc``, together (seconds and ``-Xptxas -v``
    report).
@@ -36,7 +38,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    behind ``MicroBatcher`` answers the test graphs as the restored model
    does on the packed batches (1e-4); graphs/s, MFU, a stage split of
    one training step and a profile of a few steps are printed.
-6. barrier and stream_kernel: what one grid barrier of the streamed
+6. qm8_models: the nine other QM8 configs that train on one card
+   (``configs/qm8_{gcn,graph_sage,dcnn,chebynet,gat,mpnn,gpnn}.yaml``,
+   ``qm8_lanczos_net_bf16.yaml``, ``qm8_ada_lanczos_net.yaml``) at full
+   width, cut to 1024/128/128 graphs and 3 epochs (``dataset.pack_cache:
+   false``, the runs in a temporary directory), in-process through
+   ``build_runner``, GPNN through ``lanczosnet_torch.cli`` and ``-t``.
+   Per config: every epoch's loss finite and the last below the first,
+   validation and test MAE finite; the eval-mode predictions of the
+   trained model on one packed test batch equal the same ``state_dict``'s
+   on the CPU (1e-4; bfloat16: no farther from the CPU than from the
+   float32 model with the same weights on the card, and 2e-2);
+   ``Predictor.from_run_dir`` behind ``MicroBatcher`` answers the test
+   graphs as the restored model does on the packed batches (1e-4; GPNN
+   on the float32 wire with its partition); graphs/s and a step's ms.
+   QM8 AdaLanczosNet launches the shared-memory kernel in every training
+   step, and its kernel and plain forwards agree in predictions and in
+   the ``kernel_embed`` gradient (1e-4); a profile counts a step's
+   launches. The bfloat16 flagship's packs launch the kernel, and the
+   profile of one of its steps names the bfloat16 GEMM kernels.
+7. barrier and stream_kernel: what one grid barrier of the streamed
    kernel's cooperative launch costs (a launch of barriers and nothing
    else); then the streamed Lanczos kernel (N > 128) against its plain
    version on the card, the same contract, on masked random operators at
@@ -47,7 +68,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    then both timed at that shape, and the kernel compared once more
    after the timing loop, so that state left from call to call would
    show.
-7. citation_train: ``CitationRunner`` trains the AdaLanczosNet of
+8. citation_train: ``CitationRunner`` trains the AdaLanczosNet of
    ``configs/cora_ada_lanczos_net.yaml`` at full width on a synthetic
    Cora-sized graph (N=2708, F=1433, 7 classes) for a few epochs and
    tests it; the streamed kernel's call count must grow by at least one
@@ -55,9 +76,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    below the first's, and eval-mode logits and the ``kernel_embed``
    gradient agree between the kernel forward and the plain forward
    (1e-4); step times and the stage split are printed.
-8. kernels: one line per ported kernel, its error, its time, its bound,
+9. kernels: one line per ported kernel, its error, its time, its bound,
    its latency floor and its launches, all of this run (the
-   shared-memory kernel's launches: serving and packing).
+   shared-memory kernel's launches by path: serving, the flagship's
+   packs, the bfloat16 flagship's run and QM8 AdaLanczosNet's run).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -80,6 +102,7 @@ from lanczosnet_torch.data.dataset import RITZ_CHUNK, pack_dataset
 from lanczosnet_torch.data.loader import to_device
 from lanczosnet_torch.data.qm8 import NUM_ATOM, NUM_TASK, synthetic_qm8_graphs
 from lanczosnet_torch.models import build_model
+from lanczosnet_torch.ops.precision import bf16_f32_accumulation
 from lanczosnet_torch.ops import _build, lanczos_cuda
 from lanczosnet_torch.ops.lanczos import (
     lanczos_adjoint_bwd,
@@ -98,6 +121,7 @@ from lanczosnet_torch.train.node_step import (
 )
 from lanczosnet_torch.train.checkpoint import Checkpointer
 from lanczosnet_torch.train.optim import build_optimizer
+from lanczosnet_torch.train.runner import build_runner
 from lanczosnet_torch.train.step import make_train_step, weighted_mae
 from lanczosnet_torch.utils import config as config_io
 
@@ -158,6 +182,16 @@ CORA_ADA_TRAIN = {
 CORA_ADA_SEED = 1234
 QM8_CONFIG = Path(__file__).resolve().parent / "configs" / "qm8_lanczos_net.yaml"
 QM8_EPOCHS = 4  # the depth cut: of max_epoch 30
+# the qm8_models phase: its configs, the one of them trained through the
+# CLI, and its cuts of each config (printed with the phase)
+QM8_MODEL_CONFIGS = ("qm8_gcn", "qm8_graph_sage", "qm8_dcnn", "qm8_chebynet", "qm8_gat",
+                     "qm8_mpnn", "qm8_gpnn", "qm8_lanczos_net_bf16", "qm8_ada_lanczos_net")
+QM8_MODELS_CLI = "qm8_gpnn"
+QM8_BF16 = "qm8_lanczos_net_bf16"
+QM8_ADA = "qm8_ada_lanczos_net"
+QM8_MODELS_CUT = {"dataset.num_train": 1024, "dataset.num_val": 128, "dataset.num_test": 128,
+                  "train.max_epoch": 3, "dataset.pack_cache": False}
+BF16_TOL = 2e-2  # bfloat16 card against CPU, beside the float32 model's gap
 CITATION_EPOCHS = 12  # the depth cut: of max_epoch 200
 CORA_SHAPE = (2708, 1433, 7)  # nodes, features, classes: the real dataset's
 SERVE_BATCH = 64
@@ -302,6 +336,15 @@ def qm8_operators(b: int, seed: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
     return ops[:, 0].contiguous(), mask
 
 
+def bf16_flag(inside: bool = False) -> bool:
+    """``allow_bf16_reduced_precision_reduction`` as the process has it,
+    or as a train, eval or serving step runs (``bf16_f32_accumulation``)."""
+    if not inside:
+        return torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    with bf16_f32_accumulation():
+        return torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false; this script needs an NVIDIA card")
@@ -314,6 +357,8 @@ def phase_device() -> str:
         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        matmul_allow_bf16_reduced_precision_reduction=bf16_flag(),
+        in_steps_matmul_allow_bf16_reduced_precision_reduction=bf16_flag(inside=True),
     )
     return smi
 
@@ -687,6 +732,245 @@ def phase_qm8_train(dev, smi: str) -> int:
     return launches
 
 
+def qm8_config_copy(name: str, tmp: Path) -> tuple[Path, dict, dict]:
+    """``configs/<name>.yaml`` with the phase's cuts, written to ``tmp``
+    → (its path, the cut config, the cuts as {key: [was, now]})."""
+    cfg = config_io.loads((QM8_CONFIG.parent / f"{name}.yaml").read_text())
+    cut = {}
+    for key, new in {**QM8_MODELS_CUT, "exp_dir": str(tmp / "exp")}.items():
+        section, _, field = key.rpartition(".")
+        where = cfg[section] if section else cfg
+        cut[key] = [where.get(field), new]
+        where[field] = new
+    path = tmp / f"{name}.yaml"
+    path.write_text(config_io.dumps(cfg))
+    return path, cfg, cut
+
+
+def device_kernels(fn) -> dict[str, int]:
+    """Launches by kernel name of one call of ``fn`` on the device, from a
+    ``torch.profiler`` trace (user annotations left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))}
+
+
+def bf16_gemm_kernels(model, train_step, batch, valid) -> dict:
+    """The bfloat16 GEMM kernels of one training step: the kernels that a
+    bfloat16 ``F.linear`` at the first layer's shape launches alone (with
+    its cast operands made before the trace), found again in the trace
+    of the step. Beside them, the step's ten most launched kernels."""
+    layer = model.layers[0]
+    rows = batch.mask.numel()
+    x = torch.randn(rows, layer.in_features, device=batch.mask.device, dtype=torch.bfloat16)
+    w, b = layer.weight.detach().bfloat16(), layer.bias.detach().bfloat16()
+    with bf16_f32_accumulation():
+        probe = device_kernels(lambda: torch.nn.functional.linear(x, w, b))
+    step = device_kernels(lambda: train_step(batch, valid))
+    found = {name[:100]: step[name] for name in probe if name in step}
+    top = sorted(step.items(), key=lambda kv: -kv[1])[:10]
+    return {"bf16_gemm_kernels": found, "bf16_linear_probe_kernels": [k[:100] for k in probe],
+            "step_kernel_launches": sum(step.values()),
+            "step_top_kernels": {k[:100]: v for k, v in top}}
+
+
+def qm8_run(name: str, tmp: Path, dev, smi: str) -> dict:
+    """Train one config of the qm8_models phase, check it, time it and
+    serve it → its record (emitted as a ``qm8_model`` line)."""
+    path, cfg, cut = qm8_config_copy(name, tmp)
+    mcfg, dcfg, tcfg = cfg["model"], cfg["dataset"], cfg["train"]
+    bs = int(tcfg["batch_size"])
+    lanczos_cuda.launches.reset()
+    lanczos_cuda.stream_launches.reset()
+    t0 = time.perf_counter()
+    if name == QM8_MODELS_CLI:
+        rc = cli.main(["-c", str(path)])
+        if rc != 0:
+            raise SmokeFailure(f"lanczosnet_torch.cli -c {path} exited {rc}")
+        run_dir = only_run_dir(tmp / "exp", "_train")
+        pack_launches = None
+    else:
+        config = config_io.load_config(path)
+        runner = build_runner(config, device=dev)
+        pack_launches = lanczos_cuda.launches.count
+        runner.train()
+        run_dir = Path(config.save_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lanczos_cuda.launches.count
+    stream_launches = lanczos_cuda.stream_launches.count
+    recs = read_metrics(run_dir)
+    losses = [r["loss"] for r in recs if r["event"] == "epoch"]
+    gps = [r["graphs_per_sec"] for r in recs if r["event"] == "epoch"]
+    val = [r["mae"] for r in recs if r["event"] == "val"]
+    test_mae = [r["mae"] for r in recs if r["event"] == "test"]
+    out = dict(config=f"{name}.yaml", cut=cut, epochs=len(losses), seconds=wall,
+               epoch_loss=losses, val_mae=val, test_mae=test_mae, graphs_per_sec=gps,
+               graphs_per_sec_median_epochs_1_2=float(np.median(gps[1:3])),
+               lanczos_tridiag_launches=launches, lanczos_stream_launches=stream_launches,
+               pack_launches=pack_launches)
+    epochs = QM8_MODELS_CUT["train.max_epoch"]
+    if len(losses) != epochs or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SmokeFailure(f"{name}: epoch losses {losses} are not {epochs} finite, falling numbers")
+    if len(val) != epochs or not np.isfinite(val).all() or len(test_mae) != 1 \
+            or not np.isfinite(test_mae[0]):
+        raise SmokeFailure(f"{name}: validation {val} or test MAE {test_mae} is not finite")
+
+    if name == QM8_MODELS_CLI:  # -t on the best checkpoint repeats the test MAE
+        cfg_t = {**cfg, "test": {**(cfg.get("test") or {}),
+                                 "test_model": str(run_dir / "checkpoints" / "best.pt")}}
+        path_t = tmp / f"{name}_test.yaml"
+        path_t.write_text(config_io.dumps(cfg_t))
+        if cli.main(["-c", str(path_t), "-t"]) != 0:
+            raise SmokeFailure(f"lanczosnet_torch.cli -c {path_t} -t failed")
+        retest = [r["mae"] for r in read_metrics(only_run_dir(tmp / "exp", "_test"))
+                  if r["event"] == "test"]
+        out["retest_mae"] = retest
+        if len(retest) != 1 or abs(retest[0] - test_mae[0]) > 1e-6:
+            raise SmokeFailure(f"{name}: -t gave test MAE {retest}, the training run {test_mae}")
+
+    # the packed test split, as the run packed it
+    n_max = int(dcfg["n_max"])
+    test_graphs = synthetic_qm8_graphs(int(dcfg["num_test"]), seed=int(dcfg.get("seed", 7)) + 2,
+                                       n_hi=min(n_max, 28))
+    pred = Predictor.from_run_dir(run_dir, device=dev)
+    pack = pack_dataset(test_graphs, n_max=n_max, operator_kind=dcfg["operator_kind"],
+                        num_eig_vec=pred.num_eig_vec, num_cluster=pred.num_cluster, device=dev)
+    model = pred.model
+    full = {**mcfg, "num_atom": NUM_ATOM, "num_task": NUM_TASK}
+
+    # the trained model on the card against its state_dict on the CPU
+    batch = pack.slice_batch(np.arange(bs))
+    cpu_model = build_model(full)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode(), bf16_f32_accumulation():
+        on_card = model.eval()(to_device(batch, dev)).cpu()
+        on_cpu = cpu_model.eval()(batch)
+        cpu_err = float((on_card - on_cpu).abs().max())
+        if model.dtype == torch.float32:
+            tol = TOL
+        else:  # held against the float32 model with the same weights
+            f32 = build_model({**full, "dtype": "float32"}).to(dev)
+            f32.load_state_dict(model.state_dict())
+            gap = float((on_card - f32.eval()(to_device(batch, dev)).cpu()).abs().max())
+            out["bf16_vs_float32_on_card"] = gap
+            tol = min(gap, BF16_TOL)
+    out.update(card_vs_cpu_max_abs_err=cpu_err, card_vs_cpu_tol=tol)
+    if not torch.isfinite(on_card).all() or cpu_err > tol:
+        raise SmokeFailure(f"{name}: the card's predictions differ from the CPU's by {cpu_err} > {tol}")
+
+    # served through MicroBatcher against the restored model on the packed batches
+    if name == QM8_MODELS_CLI:
+        clusters = np.concatenate([
+            pred.graph_batch(*pred._pack(test_graphs[lo: lo + pred.batch_size])).cluster.cpu().numpy()
+            for lo in range(0, len(test_graphs), pred.batch_size)])[: len(test_graphs)]
+        out["served_partition_equals_packed"] = bool(np.array_equal(clusters, pack.cluster))
+    launches_before = lanczos_cuda.launches.count
+    mb = MicroBatcher(pred, max_delay_ms=5.0)
+    try:
+        served = np.stack([f.result(timeout=300) for f in [mb.submit(g) for g in test_graphs]])
+        out["serve_latency"] = mb.latency_stats()
+    finally:
+        mb.close()
+    out["serve_lanczos_tridiag_launches"] = lanczos_cuda.launches.count - launches_before
+    with torch.inference_mode(), bf16_f32_accumulation():
+        restored = np.concatenate([
+            model(to_device(pack.slice_batch(np.arange(lo, min(lo + bs, len(pack)))), dev)).cpu().numpy()
+            for lo in range(0, len(pack), bs)])
+    restored = restored * pred.stats.std + pred.stats.mean
+    serve_err = float(np.abs(served - restored).max())
+    out["served_max_abs_err_vs_restored"] = serve_err
+    if served.shape != restored.shape or not np.isfinite(served).all() or serve_err > TOL:
+        raise SmokeFailure(f"{name}: served answers differ from the restored model by {serve_err} > {TOL}")
+
+    # a training step at batch 64
+    dev_batch = to_device(batch, dev)
+    valid = torch.ones(bs, device=dev)
+    if name == QM8_ADA:
+        out.update(ada_kernel_vs_plain(model, dev_batch, valid))
+    optimizer, scheduler, clip = build_optimizer(
+        model.parameters(), tcfg, int(dcfg["num_train"]) // bs)
+    train_step = make_train_step(model, optimizer, scheduler, clip)
+    out["train_step_ms"] = host_ms(lambda: train_step(dev_batch, valid), 20, 3)
+    out["profiler"] = profile_train_steps(train_step, dev_batch, valid, out["train_step_ms"],
+                                          watch="lanczos" if name == QM8_ADA else None)
+    if name == QM8_ADA:
+        before = lanczos_cuda.launches.count
+        train_step(dev_batch, valid)
+        torch.cuda.synchronize()
+        out["lanczos_tridiag_launches_one_step"] = lanczos_cuda.launches.count - before
+        steps = epochs * (int(dcfg["num_train"]) // bs)
+        out["train_steps"] = steps
+        if out["lanczos_tridiag_launches_one_step"] < 1 or launches < steps:
+            raise SmokeFailure(f"{name}: {steps} training steps launched the kernel {launches} times, "
+                               f"one step {out['lanczos_tridiag_launches_one_step']}")
+    if name == QM8_BF16:
+        chunks = sum(-(-int(dcfg[f"num_{s_}"]) // RITZ_CHUNK) for s_ in ("train", "val", "test"))
+        out["ritz_chunks"] = chunks
+        out.update(bf16_gemm_kernels(model, train_step, dev_batch, valid))
+        if pack_launches < chunks:
+            raise SmokeFailure(f"{name}: {chunks} pack chunks launched the kernel {pack_launches} times")
+        if not out["bf16_gemm_kernels"]:
+            raise SmokeFailure(
+                f"{name}: none of the bfloat16 GEMM's kernels {out['bf16_linear_probe_kernels']} "
+                f"is in the profile of a step: {out['step_top_kernels']}")
+    emit("qm8_model", **out, nvidia_smi=smi)
+    return out
+
+
+def ada_kernel_vs_plain(model, batch, valid) -> dict:
+    """QM8 AdaLanczosNet on one 64-graph batch: eval-mode predictions and
+    the ``kernel_embed`` gradient of the loss through the kernel and
+    through the plain version on the card."""
+    runs = {}
+    try:
+        for impl in ("kernel", "plain"):
+            model.lanczos_impl = impl
+            model.eval().zero_grad(set_to_none=True)
+            pred = model(batch)
+            weighted_mae(pred, batch.label, valid).backward()
+            runs[impl] = pred.detach(), model.kernel_embed.weight.grad.clone()
+    finally:
+        model.lanczos_impl = "auto"
+        model.zero_grad(set_to_none=True)
+    pred_err = float((runs["kernel"][0] - runs["plain"][0]).abs().max())
+    scale = float(runs["plain"][1].abs().max())
+    grad_err = float((runs["kernel"][1] - runs["plain"][1]).abs().max()) / max(scale, 1e-30)
+    if not (torch.isfinite(runs["kernel"][0]).all() and pred_err <= TOL):
+        raise SmokeFailure(f"QM8 AdaLanczosNet: kernel and plain predictions differ by {pred_err}")
+    if not (scale > 0 and grad_err <= TOL):
+        raise SmokeFailure(f"QM8 AdaLanczosNet: kernel_embed gradients differ by {grad_err} of {scale}")
+    return {"kernel_vs_plain_pred_max_abs_err": pred_err,
+            "kernel_vs_plain_kernel_embed_grad_scaled_err": grad_err,
+            "kernel_embed_grad_abs_max": scale}
+
+
+def phase_qm8_models(dev, smi: str) -> dict:
+    """Every config of ``QM8_MODEL_CONFIGS`` trained, checked and served
+    → the shared-memory kernel's launches in each config's run, by config."""
+    records = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qm8_models_") as tmp:
+        for name in QM8_MODEL_CONFIGS:
+            (Path(tmp) / name).mkdir()
+            records[name] = qm8_run(name, Path(tmp) / name, dev, smi)
+    emit("qm8_models", configs=list(records),
+         graphs_per_sec={n: r["graphs_per_sec_median_epochs_1_2"] for n, r in records.items()},
+         train_step_ms={n: r["train_step_ms"] for n, r in records.items()},
+         launches_per_step={n: r["profiler"].get("kernel_launches_per_step")
+                            for n, r in records.items()},
+         device_busy_ms_per_step={n: r["profiler"].get("device_busy_ms_per_step")
+                                  for n, r in records.items()},
+         test_mae={n: r["test_mae"][0] for n, r in records.items()}, nvidia_smi=smi)
+    return {n: r["lanczos_tridiag_launches"] for n, r in records.items()}
+
+
 def citation_config(save_dir: str) -> dict:
     """The whole of ``configs/cora_ada_lanczos_net.yaml`` as a mapping,
     with the depth cut to ``CITATION_EPOCHS`` and every epoch logged."""
@@ -872,13 +1156,16 @@ def citation_stage_breakdown(runner: CitationRunner, reps: int = 7) -> dict:
     return out
 
 
-def profile_train_steps(train_step, batch, sup_mask, step_ms: float, steps: int = 5) -> dict:
+def profile_train_steps(train_step, batch, sup_mask, step_ms: float, steps: int = 5,
+                        watch: str | None = None) -> dict:
     """A ``torch.profiler`` trace of a few training steps: the device
     time of all kernels of a step, its share of ``step_ms`` (the step's
     time without the profiler, whose own overhead stretches the traced
-    steps several times over), and the kernels that took most of it.
-    ``None`` values where the trace holds no device time (then it was
-    not measured)."""
+    steps several times over), and the kernels that took most of it;
+    with ``watch``, the launches and device time a step of the kernels
+    whose name holds it, and their share of the busy time. ``None``
+    values where the trace holds no device time (then it was not
+    measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -899,7 +1186,14 @@ def profile_train_steps(train_step, batch, sup_mask, step_ms: float, steps: int 
     if busy_ms <= 0:
         return {"device_busy_share": None, "top_kernels": None, "profiled_steps": steps}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    watched = {}
+    if watch is not None:
+        mine = [e for e in kernels if watch in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / steps / 1e3
+        watched = {"watched": watch, "watched_launches_per_step": sum(e.count for e in mine) / steps,
+                   "watched_ms_per_step": ms, "watched_share_of_busy": ms / busy_ms}
     return {
+        **watched,
         "device_busy_ms_per_step": busy_ms,
         "device_busy_share": busy_ms / step_ms,
         "device_idle_share": 1.0 - busy_ms / step_ms,
@@ -1011,6 +1305,7 @@ def main() -> None:
     kern = phase_kernel(dev, barrier["small_launch_ms"])
     serve_launches = phase_serve(dev, smi)
     pack_launches = phase_qm8_train(dev, smi)
+    model_launches = phase_qm8_models(dev, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cora_") as run_dir:
         runner = CitationRunner(citation_config(run_dir), device=dev)
         stream = phase_stream_kernel(dev, runner, barrier)
@@ -1023,8 +1318,11 @@ def main() -> None:
         "route": "cuda",
         "source": "lanczosnet_torch/csrc/lanczos_tridiag.cu",
         "replaces": "lanczosnet_tpu/ops/lanczos_pallas.py:81",
-        "launches": serve_launches + pack_launches,
-        "launches_by_path": {"serve": serve_launches, "qm8_train_packs": pack_launches},
+        "launches": serve_launches + pack_launches + model_launches[QM8_BF16]
+        + model_launches[QM8_ADA],
+        "launches_by_path": {"serve": serve_launches, "qm8_train_packs": pack_launches,
+                             "qm8_models_bf16_run": model_launches[QM8_BF16],
+                             "qm8_models_ada_run": model_launches[QM8_ADA]},
         "max_abs_err": kern["max_abs_err"],
         "ms": t64["kernel_ms"],
         "kernel_ms": t64["kernel_ms"],

@@ -23,10 +23,9 @@ class GraphBatch:
     float (Fc may be 0), ops ``[B, E, N, N]`` float, mask ``[B, N]``
     float (1 real, 0 padding), and optionally label ``[B, T]``,
     ritz_val ``[B, K]``, ritz_vec ``[B, N, K]``, cluster ``[B, N]`` int
-    (a partition assignment, -1 for padding; no ported model reads it)
-    and node_label ``[B, N]`` int (per-node classes for full-graph node
-    classification; which nodes are supervised is a separate mask given
-    to the loss).
+    (GPNN's partition assignment, 0 on padded nodes) and node_label
+    ``[B, N]`` int (per-node classes for full-graph node classification;
+    which nodes are supervised is a separate mask given to the loss).
     """
 
     atom_type: torch.Tensor

@@ -110,8 +110,8 @@ def pack_citation(
     """
     if num_cluster > 0:
         raise NotImplementedError(
-            "num_cluster > 0 attaches a GPNN partition; GPNN and its partitioner "
-            "are not ported yet (ROADMAP A7)"
+            "num_cluster > 0 attaches a GPNN partition of the citation graph; its "
+            "partitioner (ritz_partition) is not ported yet (ROADMAP A9)"
         )
     device = resolve_device(device)
     n = graph["features"].shape[0]

@@ -10,8 +10,9 @@ The operators are built on ``device`` by ``ops/normalize.py``, and the
 Ritz precompute runs there through ``batched_lanczos_ritz_dispatch``:
 on the card, for graphs of at most 128 padded nodes, that is the CUDA
 Lanczos kernel (``csrc/lanczos_tridiag.cu``), one launch per chunk of
-256 graphs. ``save_packed``/``load_packed`` use the JAX package's npz
-keys, so each package reads the other's packed split.
+256 graphs. GPNN's partition (``cluster``) is computed on the host from
+the packed operators. ``save_packed``/``load_packed`` use the JAX
+package's npz keys, so each package reads the other's packed split.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from lanczosnet_torch.core.graph_batch import GraphBatch, batch_graphs
+from lanczosnet_torch.data.partition import cluster_of_ops
 from lanczosnet_torch.ops.lanczos_cuda import batched_lanczos_ritz_dispatch
 from lanczosnet_torch.ops.normalize import build_operator_stack
 from lanczosnet_torch.utils.device import resolve_device
@@ -127,13 +129,11 @@ def pack_dataset(
 
     ``num_eig_vec > 0`` precomputes that many Ritz pairs of each graph's
     channel-0 operator on ``device`` (the card unless the caller names
-    another). ``stats`` reuses the training split's standardization;
-    with ``standardize`` and no ``stats`` they are fitted here.
+    another). ``num_cluster > 0`` attaches GPNN's spectral partition of
+    channel 0 (``data/partition.py``, on the host). ``stats`` reuses the
+    training split's standardization; with ``standardize`` and no
+    ``stats`` they are fitted here.
     """
-    if num_cluster > 0:
-        raise NotImplementedError(
-            "num_cluster > 0 (GPNN's spectral partition) is not ported yet (ROADMAP A7)"
-        )
     dev = resolve_device(device)
     host = batch_graphs(list(graphs), n_max)
     mask = host["mask"].astype(np.float32)
@@ -151,15 +151,17 @@ def pack_dataset(
     ritz_val = ritz_vec = None
     if num_eig_vec > 0:
         ritz_val, ritz_vec = _chunked_ritz(ops_t[:, 0], mask_t, num_eig_vec)
+    ops = ops_t.cpu().numpy()
     return PackedDataset(
         atom_type=host["atom_type"],
         node_feat=host["node_feat"],
-        ops=ops_t.cpu().numpy(),
+        ops=ops,
         mask=mask,
         label=label,
         stats=stats if standardize else None,
         ritz_val=ritz_val,
         ritz_vec=ritz_vec,
+        cluster=cluster_of_ops(ops, mask, num_cluster) if num_cluster > 0 else None,
     )
 
 

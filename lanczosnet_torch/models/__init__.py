@@ -1,22 +1,29 @@
 """Model registry: the YAML ``model.name`` → a model class.
 
-Counterpart of ``lanczosnet_tpu/models/__init__.py``. Models of the JAX
-registry that are not ported yet raise and name their ROADMAP item.
+Counterpart of ``lanczosnet_tpu/models/__init__.py``, with the same nine
+names.
 """
 
 from lanczosnet_torch.models.ada_lanczos_net import AdaLanczosNet
+from lanczosnet_torch.models.chebynet import ChebyNet
+from lanczosnet_torch.models.dcnn import DCNN
+from lanczosnet_torch.models.gat import GAT
+from lanczosnet_torch.models.gcn import GCN
+from lanczosnet_torch.models.gpnn import GPNN
+from lanczosnet_torch.models.graph_sage import GraphSAGE
 from lanczosnet_torch.models.lanczos_net import LanczosNet
+from lanczosnet_torch.models.mpnn import MPNN
 
-MODEL_REGISTRY = {"LanczosNet": LanczosNet, "AdaLanczosNet": AdaLanczosNet}
-
-_NOT_PORTED = {
-    "GCN": "A7",
-    "GraphSAGE": "A7",
-    "DCNN": "A7",
-    "ChebyNet": "A7",
-    "GAT": "A7",
-    "MPNN": "A7",
-    "GPNN": "A7",
+MODEL_REGISTRY = {
+    "GCN": GCN,
+    "ChebyNet": ChebyNet,
+    "DCNN": DCNN,
+    "GAT": GAT,
+    "GraphSAGE": GraphSAGE,
+    "MPNN": MPNN,
+    "GPNN": GPNN,
+    "LanczosNet": LanczosNet,
+    "AdaLanczosNet": AdaLanczosNet,
 }
 
 
@@ -24,10 +31,6 @@ def build_model(model_cfg: dict):
     """Build a model from the YAML ``model:`` section with ``num_atom``
     and ``num_task`` merged in."""
     name = model_cfg["name"]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP {_NOT_PORTED[name]})"
-        )
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name].from_config(model_cfg)

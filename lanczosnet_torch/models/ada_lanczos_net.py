@@ -13,8 +13,11 @@ Counterpart of ``lanczosnet_tpu/models/ada_lanczos_net.py``:
 3. downstream is LanczosNet's multi-scale layer loop with the learned S
    driving the short scales too.
 
-float32 only. ``lanczos_impl`` is ``auto`` (the kernel on a CUDA tensor,
-its plain version on a CPU tensor), ``kernel`` or ``plain``.
+``model.dtype: bfloat16`` casts the node states to bfloat16 only after
+the learned kernel, the Lanczos call and the Ritz pairs, which stay
+float32; the layer loop then runs as LanczosNet's. ``lanczos_impl`` is
+``auto`` (the kernel on a CUDA tensor, its plain version on a CPU
+tensor), ``kernel`` or ``plain``.
 """
 
 from __future__ import annotations

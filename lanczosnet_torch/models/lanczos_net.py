@@ -18,11 +18,18 @@ each is applied in factored form (``ops/poly.py``, ``ops/spectral.py``)
 and no ``[N, N]`` matrix beyond S itself is formed. The gated attention
 readout (``task: graph``) or the per-node head (``task: node``) follows
 the last layer.
+
+``model.dtype: bfloat16``: the parameters, the filter bank and the
+operator powers stay float32; each channel is cast to bfloat16 after its
+float32 formation, the channel product accumulates in float32 and is
+stored as bfloat16, the layer ``Linear`` runs in bfloat16, and the node
+states go back to float32 before the head. ``model.sum_dense: true``
+applies the fused path's layer as ``SumDense([h, channels @ h])`` with
+the same parameters.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
@@ -30,12 +37,17 @@ from torch import nn
 
 from lanczosnet_torch.core.graph_batch import GraphBatch
 from lanczosnet_torch.models.base import (
-    AttentionReadout,
+    Dense,
     Dropout,
+    GraphModel,
     NodeEncoder,
-    NodeHead,
+    SumDense,
+    check_num_ops,
+    common_config,
     edge_message_concat,
     flatten_feature_stack,
+    lecun_normal_,
+    make_head,
 )
 from lanczosnet_torch.ops.poly import diffusion_features_at
 from lanczosnet_torch.ops.spectral import long_scale_features
@@ -108,17 +120,19 @@ def channel_stack(
     ritz_vec: torch.Tensor | None,
     filt: torch.Tensor | None,
     edge_ops: torch.Tensor | None,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """One layer's propagation operators ``[B, C, N, N]``:
-    ``[S^t… ‖ V f_s(D) Vᵀ… ‖ A_e…]`` in that order."""
+    ``[S^t… ‖ V f_s(D) Vᵀ… ‖ A_e…]`` in that order, each channel formed
+    in float32 and then cast to ``dtype``."""
     chans = []
     if short_ops is not None:
-        chans.append(short_ops)
+        chans.append(short_ops.to(dtype))
     if filt is not None:
         scaled_v = filt[:, :, None, :] * ritz_vec[:, None, :, :]  # [B,S,N,K]
-        chans.append(torch.matmul(scaled_v, ritz_vec.transpose(1, 2)[:, None]))
+        chans.append(torch.matmul(scaled_v, ritz_vec.transpose(1, 2)[:, None]).to(dtype))
     if edge_ops is not None:
-        chans.append(edge_ops)
+        chans.append(edge_ops.to(dtype))
     return torch.cat(chans, dim=1) if len(chans) > 1 else chans[0]
 
 
@@ -130,17 +144,43 @@ def spectral_layer_channels(
     edge_ops: torch.Tensor | None,
 ) -> torch.Tensor:
     """All of a layer's propagation channels applied to ``h [B,N,F]`` in
-    one batched product → ``[B, N, C·F]``."""
-    stack = channel_stack(short_ops, ritz_vec, filt, edge_ops)
+    one batched product → ``[B, N, C·F]`` at ``h``'s dtype. A bfloat16
+    product accumulates in float32 and rounds once, at its output."""
+    stack = channel_stack(short_ops, ritz_vec, filt, edge_ops, h.dtype)
     return flatten_feature_stack(torch.matmul(stack, h[:, None]))
 
 
-class LanczosNet(nn.Module):
+class FusedChannelDense(nn.Linear):
+    """``Linear([h ‖ flatten(stack @ h)])`` with the weight folded into
+    the channel contraction: ``G[b,c,j,d] = Σ_f h[b,j,f] W_c[d,f]``, then
+    ``Σ_{c,j} stack[b,c,i,j] G[b,c,j,d]``, plus ``h W_h`` and the bias.
+    The same operations as the product and then the ``Linear``, in
+    another order, and no ``[B, N, C·F]`` concat. The JAX package keeps
+    it as a measured negative result (slower in its full train step) and
+    no model uses it; its parameters are those of the ``Linear`` on the
+    concat, float32."""
+
+    def __init__(self, in_dim: int, channels: int, out_features: int):
+        super().__init__(in_dim * (1 + channels), out_features)
+        self.channels = channels
+
+    def forward(self, h: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
+        f = h.shape[-1]
+        w_h = self.weight[:, :f]  # [D, F]
+        w_p = self.weight[:, f:].reshape(self.out_features, self.channels, f)  # [D, C, F]
+        g = torch.einsum("bjf,dcf->bcjd", h, w_p)
+        b, c, n, _ = stack.shape
+        # contract over (c, j) at once: [B, N, C·N] @ [B, C·N, D]
+        out = torch.bmm(stack.transpose(1, 2).reshape(b, n, c * n), g.reshape(b, c * n, -1))
+        return out + h @ w_h.T + self.bias
+
+
+class LanczosNet(GraphModel):
     """LanczosNet over a ``GraphBatch`` carrying Ritz pairs → ``[B, T]``
     (``task="graph"``) or per-node logits ``[B, N, T]`` (``task="node"``).
 
-    float32. ``num_edge_type`` and ``node_feat_dim`` fix the layer widths
-    that flax infers from the first batch.
+    ``num_edge_type`` and ``node_feat_dim`` fix the layer widths that
+    flax infers from the first batch.
     """
 
     def __init__(
@@ -162,19 +202,12 @@ class LanczosNet(nn.Module):
         sum_dense: bool = False,
         dtype: str | None = None,
     ):
-        super().__init__()
-        if task not in ("graph", "node"):
-            raise ValueError(f"task={task!r} must be 'graph' or 'node'")
-        if sum_dense:
-            raise NotImplementedError("model.sum_dense is not ported yet (ROADMAP A3)")
-        if dtype is not None and str(dtype) not in ("float32", "f32"):
-            raise NotImplementedError(
-                f"model.dtype={dtype!r}: only float32 is ported so far (ROADMAP A3)"
-            )
+        super().__init__(task, dtype)
         self.short_dists = tuple(int(t) for t in short_diffusion_dist)
         self.long_dists = tuple(int(t) for t in long_diffusion_dist)
         self.num_eig_vec = int(num_eig_vec)
         self.num_edge_type = int(num_edge_type)
+        self.sum_dense = bool(sum_dense)
         self.encoder = NodeEncoder(num_atom, embed_dim)
         self.spectral_filters = (
             SpectralFilterBank(len(hidden_dim), self.long_dists,
@@ -183,60 +216,37 @@ class LanczosNet(nn.Module):
         )
         channels = len(self.short_dists) + len(self.long_dists) + self.num_edge_type
         d_in = embed_dim + node_feat_dim
+        layer = SumDense if self.sum_dense else Dense
         layers = []
         for dim in hidden_dim:
-            layers.append(nn.Linear(d_in * (1 + channels), dim))
+            layers.append(layer(d_in * (1 + channels), dim, act_dtype=self.dtype))
             d_in = dim
         self.layers = nn.ModuleList(layers)
         self.dropout = Dropout(dropout)
-        head = NodeHead if task == "node" else AttentionReadout
-        self.readout = head(d_in, num_task, output_hidden_dim)
+        self.readout = make_head(task, d_in, num_task, output_hidden_dim)
 
     @classmethod
     def from_config(cls, cfg: dict) -> "LanczosNet":
         """From the YAML ``model:`` section with ``num_atom`` and
         ``num_task`` merged in, as the JAX model reads it."""
         return cls(
-            num_atom=cfg["num_atom"],
             embed_dim=cfg.get("embed_dim", cfg["hidden_dim"][0]),
-            hidden_dim=tuple(cfg["hidden_dim"]),
-            num_task=cfg["num_task"],
             short_diffusion_dist=tuple(cfg.get("short_diffusion_dist", (1, 2, 3))),
             long_diffusion_dist=tuple(cfg.get("long_diffusion_dist", (5, 7, 10, 20, 30))),
             num_eig_vec=cfg.get("num_eig_vec", 20),
             spectral_filter_kind=cfg.get("spectral_filter_kind", "MLP"),
             filter_hidden_dim=cfg.get("filter_hidden_dim", 16),
-            output_hidden_dim=tuple(cfg.get("output_hidden_dim", ())),
-            dropout=cfg.get("dropout", 0.0),
-            num_edge_type=cfg.get("num_edge_type", 4),
-            node_feat_dim=cfg.get("node_feat_dim", 0),
-            task=cfg.get("task", "graph"),
             sum_dense=bool(cfg.get("sum_dense", False)),
-            dtype=cfg.get("dtype"),
+            **common_config(cfg),
         )
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Draw every weight from ``generator``: normal with variance
-        1/fan_in (as flax's lecun_normal, untruncated), biases zero."""
-
-        def normal_(p: torch.Tensor, fan_in: int) -> None:
-            p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
-
-        # flax's variance_scaling(fan_in, out_axis=0) on the [num_atom,
-        # features] table takes the feature width as fan_in
-        emb = self.encoder.atom_embed.weight
-        normal_(emb, emb.shape[1])
+    def init_extra(self, generator: torch.Generator) -> None:
         bank = self.spectral_filters
         if bank is not None and bank.mlp:
-            normal_(bank.w1, bank.w1.shape[-2])
-            normal_(bank.w2, bank.w2.shape[-2])
+            lecun_normal_(bank.w1, bank.w1.shape[-2], generator)
+            lecun_normal_(bank.w2, bank.w2.shape[-2], generator)
             bank.b1.zero_()
             bank.b2.zero_()
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                normal_(mod.weight, mod.in_features)
-                mod.bias.zero_()
 
     def forward(self, batch: GraphBatch) -> torch.Tensor:
         if batch.ritz_val is None or batch.ritz_vec is None:
@@ -250,32 +260,34 @@ class LanczosNet(nn.Module):
     ) -> torch.Tensor:
         """The layer loop and the head on node states ``h [B,N,F]``, with
         ``s_op [B,N,N]`` driving the short scales and the Ritz pairs the
-        long ones."""
-        if batch.num_ops - 1 != self.num_edge_type:
-            raise ValueError(
-                f"batch has {batch.num_ops - 1} edge-type operators, model "
-                f"was built for num_edge_type={self.num_edge_type}"
-            )
-        mask = batch.mask
+        long ones. ``h`` and everything before the loop are float32; the
+        loop runs at the activation dtype."""
+        check_num_ops(batch, self.num_edge_type)
+        cdt = self.dtype
+        h = h.to(cdt)
+        mask = batch.mask.to(cdt)
         fused = batch.n_max <= FUSED_N_MAX
         filt_bank = self.spectral_filters(ritz_val) if self.spectral_filters is not None else None
         short_ops = operator_powers(s_op, self.short_dists) if fused and self.short_dists else None
         edge_ops = batch.ops[:, 1:] if batch.num_ops > 1 else None
         for li, layer in enumerate(self.layers):
             filt = filt_bank[:, li] if filt_bank is not None else None
-            parts = [h]
-            if fused:
-                if short_ops is not None or filt is not None or edge_ops is not None:
-                    parts.append(spectral_layer_channels(h, short_ops, ritz_vec, filt, edge_ops))
+            if fused and (short_ops is not None or filt is not None or edge_ops is not None):
+                prop = spectral_layer_channels(h, short_ops, ritz_vec, filt, edge_ops)
+                h = layer([h, prop]) if self.sum_dense else layer(torch.cat([h, prop], dim=-1))
             else:
+                # the factored helpers take and give float32
+                x = h.float()
+                parts = [h]
                 if self.short_dists:
-                    short = diffusion_features_at(s_op, h, self.short_dists)
-                    parts.append(flatten_feature_stack(short))
+                    short = diffusion_features_at(s_op, x, self.short_dists)
+                    parts.append(flatten_feature_stack(short).to(cdt))
                 if filt is not None:
-                    parts.append(flatten_feature_stack(long_scale_features(ritz_vec, filt, h)))
+                    parts.append(flatten_feature_stack(long_scale_features(ritz_vec, filt, x)).to(cdt))
                 if edge_ops is not None:
-                    parts.append(edge_message_concat(edge_ops, h))
-            h = torch.relu(layer(torch.cat(parts, dim=-1) if len(parts) > 1 else h))
+                    parts.append(edge_message_concat(edge_ops, x).to(cdt))
+                h = layer(torch.cat(parts, dim=-1) if len(parts) > 1 else h)
+            h = torch.relu(h)
             h = self.dropout(h)
             h = h * mask[..., None]
-        return self.readout(h, mask)
+        return self.readout(h.float(), batch.mask)

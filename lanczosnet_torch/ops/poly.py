@@ -1,8 +1,10 @@
-"""Diffusion (power) features, LanczosNet's short scales on large graphs.
+"""Polynomial and diffusion features: ChebyNet's Chebyshev stack, DCNN's
+hops and LanczosNet's short scales on large graphs.
 
-Counterpart of ``lanczosnet_tpu/ops/poly.py:diffusion_features`` and
-``diffusion_features_at``: a chain of batched products ``S·X`` that the
-JAX package leaves to XLA and the port to ``torch.bmm``.
+Counterpart of ``lanczosnet_tpu/ops/poly.py``: chains of batched
+products ``S·X`` that the JAX package leaves to XLA (unrolled, or a
+``lax.scan`` above eight steps, with the same values) and the port to
+``torch.bmm``. Inputs and outputs are float32.
 """
 
 from __future__ import annotations
@@ -10,6 +12,19 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+
+def chebyshev_features(op: torch.Tensor, x: torch.Tensor, order: int) -> torch.Tensor:
+    """``[T_0 x, T_1 x, …, T_order x]`` → ``[B, order+1, N, F]`` for
+    ``op [B,N,N]`` (spectrally in [-1, 1], as a symmetric-normalized
+    adjacency is) and ``x [B,N,F]``: ``T_0 x = x``, ``T_1 x = S x``,
+    ``T_k x = 2 S T_{k-1} x − T_{k-2} x``."""
+    if order < 1:
+        return x[:, None]
+    feats = [x, torch.bmm(op, x)]
+    for _ in range(order - 1):
+        feats.append(2.0 * torch.bmm(op, feats[-1]) - feats[-2])
+    return torch.stack(feats, dim=1)
 
 
 def diffusion_features(op: torch.Tensor, x: torch.Tensor, max_hop: int) -> torch.Tensor:

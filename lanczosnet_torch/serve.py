@@ -9,7 +9,12 @@ Counterpart of ``lanczosnet_tpu/serve.py``:
   K-step Ritz precompute (the CUDA Lanczos kernel on the card) run on
   the device inside the request program. A chunk whose adjacency is not
   uint8-exact ships float32 adjacency and an explicit mask into the same
-  program: the legacy wire's math without a host pack.
+  program: the legacy wire's math without a host pack. GPNN's requests
+  always take the float32 wire: its partition (``cluster``) is computed
+  on the host from channel 0 of the request's operators by the function
+  that partitions a packed split (``data/partition.py:cluster_of_ops``),
+  so a served GPNN sees the partition it was trained with; the compact
+  wire carries none.
 - ``MicroBatcher`` coalesces single-graph requests from many client
   threads into one device program per batch, keeps per-request latency
   percentiles, and drains queued requests on ``close()``.
@@ -38,10 +43,12 @@ import torch
 
 from lanczosnet_torch.core.graph_batch import GraphBatch
 from lanczosnet_torch.data.dataset import LabelStats
+from lanczosnet_torch.data.partition import cluster_of_ops
 from lanczosnet_torch.data.qm8 import NUM_TASK, synthetic_qm8_graphs
 from lanczosnet_torch.models import build_model
 from lanczosnet_torch.ops.lanczos_cuda import batched_lanczos_ritz_dispatch
 from lanczosnet_torch.ops.normalize import build_operator_stack
+from lanczosnet_torch.ops.precision import bf16_f32_accumulation
 from lanczosnet_torch.train.checkpoint import Checkpointer
 from lanczosnet_torch.utils.config import loads
 from lanczosnet_torch.utils.device import resolve_device
@@ -57,6 +64,7 @@ class Predictor:
         n_max: int,
         batch_size: int = 64,
         num_eig_vec: int = 0,
+        num_cluster: int = 0,
         operator_kind: str = "sym",
         stats: Optional[LabelStats] = None,
         num_task: int = 16,
@@ -68,6 +76,7 @@ class Predictor:
         self.n_max = n_max
         self.batch_size = batch_size
         self.num_eig_vec = num_eig_vec
+        self.num_cluster = num_cluster
         self.operator_kind = operator_kind
         self.stats = stats
         self.num_task = num_task
@@ -101,6 +110,7 @@ class Predictor:
             n_max=int(dcfg.get("n_max", 32)),
             batch_size=batch_size,
             num_eig_vec=int(mcfg.get("num_eig_vec", 20)) if mcfg["name"] == "LanczosNet" else 0,
+            num_cluster=int(mcfg.get("num_partition", 2)) if mcfg["name"] == "GPNN" else 0,
             operator_kind=dcfg.get("operator_kind", "sym"),
             stats=stats,
             num_task=num_task,
@@ -114,11 +124,13 @@ class Predictor:
         self.predict(probe)
         self._finish(*self._dispatch(probe, compact=False))
 
-    @staticmethod
-    def _compact_ok(chunk: Sequence[dict]) -> bool:
-        """Lossless-uint8 eligibility: every adjacency entry an integer in
-        [0, 255] and every real atom type positive (the device program
-        rebuilds the padding mask as atom_type > 0)."""
+    def _compact_ok(self, chunk: Sequence[dict]) -> bool:
+        """Lossless-uint8 eligibility: not GPNN (the compact wire has no
+        partition), every adjacency entry an integer in [0, 255] and
+        every real atom type positive (the device program rebuilds the
+        padding mask as atom_type > 0)."""
+        if self.num_cluster:
+            return False
         for g in chunk:
             adj = np.asarray(g["adj"])
             if adj.size and (
@@ -139,6 +151,8 @@ class Predictor:
             raise ValueError(f"chunk {real} > batch_size={self.batch_size}")
         if compact is None:
             compact = self._compact_ok(chunk)
+        if compact and self.num_cluster:
+            raise ValueError("GPNN requests take the float32 wire: the compact wire has no partition")
         bs, n = self.batch_size, self.n_max
         e = int(np.asarray(chunk[0]["adj"]).shape[0])
         feat0 = chunk[0].get("node_feat")
@@ -161,14 +175,20 @@ class Predictor:
         return adj, atom, feat, mask
 
     def graph_batch(self, adj, atom, feat, mask) -> GraphBatch:
-        """Move a packed chunk to the device and build its operator stack."""
+        """Move a packed chunk to the device and build its operator stack
+        (and, for GPNN, the partition of its channel 0)."""
         dev = self.device
         atom_t = torch.from_numpy(atom).to(dev)
         mask_t = (atom_t > 0).float() if mask is None else torch.from_numpy(mask).to(dev)
         adj_t = torch.from_numpy(adj).to(dev).float()
         ops = build_operator_stack(adj_t, mask_t, kind=self.operator_kind)
+        cluster = None
+        if self.num_cluster:
+            cluster = torch.from_numpy(
+                cluster_of_ops(ops.cpu().numpy(), mask, self.num_cluster)).to(dev)
         return GraphBatch(
-            atom_type=atom_t, node_feat=torch.from_numpy(feat).to(dev), ops=ops, mask=mask_t
+            atom_type=atom_t, node_feat=torch.from_numpy(feat).to(dev), ops=ops, mask=mask_t,
+            cluster=cluster,
         )
 
     def _dispatch(self, chunk: Sequence[dict], compact: Optional[bool] = None):
@@ -176,7 +196,7 @@ class Predictor:
         without waiting. Returns ``(device_handle, real_count)`` for
         :meth:`_finish`."""
         packed = self._pack(chunk, compact)
-        with torch.inference_mode():
+        with torch.inference_mode(), bf16_f32_accumulation():
             batch = self.graph_batch(*packed)
             if self.num_eig_vec > 0:
                 d, v = batched_lanczos_ritz_dispatch(batch.ops[:, 0], batch.mask, self.num_eig_vec)

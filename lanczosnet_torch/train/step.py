@@ -14,6 +14,7 @@ from typing import Callable, Optional
 import torch
 
 from lanczosnet_torch.core.graph_batch import GraphBatch
+from lanczosnet_torch.ops.precision import bf16_f32_accumulation
 
 
 def weighted_mae(pred: torch.Tensor, label: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -32,13 +33,15 @@ def make_train_step(
     """``(batch, valid) → loss``: forward in training mode (dropout on),
     backward, the gradient clipped to the global norm ``grad_clip``
     before the optimizer adds its weight decay, the optimizer step and
-    one step of the schedule."""
+    one step of the schedule. The forward and the backward run in
+    ``bf16_f32_accumulation``."""
 
     def train_step(batch: GraphBatch, valid: torch.Tensor) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = weighted_mae(model(batch), batch.label, valid)
-        loss.backward()
+        with bf16_f32_accumulation():
+            loss = weighted_mae(model(batch), batch.label, valid)
+            loss.backward()
         if grad_clip:
             torch.nn.utils.clip_grad_norm_(model.parameters(), float(grad_clip))
         optimizer.step()
@@ -57,6 +60,7 @@ def make_eval_step(
     once and the MAE is exact whatever the ghost padding."""
 
     @torch.inference_mode()
+    @bf16_f32_accumulation()
     def eval_step(batch: GraphBatch, valid: torch.Tensor):
         model.eval()
         err = (model(batch) - batch.label).abs() * valid[:, None]

@@ -58,23 +58,19 @@ class _Leaves:
             raise KeyError(f"flax leaves not mapped: {names}")
 
 
-def _linear(out: dict, leaves: _Leaves, prefix: str, *path: str) -> None:
+def _linear(out: dict, leaves: _Leaves, prefix: str, *path: str, bias: bool = True) -> None:
     out[f"{prefix}.weight"] = leaves.take(*path, "kernel").T.contiguous()
-    out[f"{prefix}.bias"] = leaves.take(*path, "bias")
+    if bias:
+        out[f"{prefix}.bias"] = leaves.take(*path, "bias")
 
 
-def _spectral_net_state_dict(leaves: _Leaves) -> dict[str, torch.Tensor]:
-    """The leaves LanczosNet and AdaLanczosNet share: the embedding, the
-    filter bank, the layers and the head (``AttentionReadout_0`` for
-    ``task: graph``, ``NodeHead_0`` for ``task: node``)."""
-    out = {"encoder.atom_embed.weight": leaves.take("NodeEncoder_0", "atom_embed", "embedding")}
-    if leaves.has("spectral_filters"):
-        for name in ("w1", "b1", "w2", "b2"):
-            out[f"spectral_filters.{name}"] = leaves.take("spectral_filters", name)
-    li = 0
-    while leaves.has(f"layer_{li}"):
-        _linear(out, leaves, f"layers.{li}", f"layer_{li}")
-        li += 1
+def _embedding(out: dict, leaves: _Leaves) -> None:
+    out["encoder.atom_embed.weight"] = leaves.take("NodeEncoder_0", "atom_embed", "embedding")
+
+
+def _head(out: dict, leaves: _Leaves) -> None:
+    """``AttentionReadout_0`` (``task: graph``) or ``NodeHead_0``
+    (``task: node``) → ``readout.*``."""
     node = leaves.has("NodeHead_0")
     head = "NodeHead_0" if node else "AttentionReadout_0"
     if not node:
@@ -85,12 +81,33 @@ def _spectral_net_state_dict(leaves: _Leaves) -> dict[str, torch.Tensor]:
         hi += 1
     last = "node_proj" if node else "out_proj"
     _linear(out, leaves, f"readout.{last}", head, last)
+
+
+def _layers(out: dict, leaves: _Leaves) -> None:
+    """``layer_0, layer_1, …`` (a Dense, or a ``SumDense`` with the same
+    leaves) → ``layers.<i>``."""
+    li = 0
+    while leaves.has(f"layer_{li}"):
+        _linear(out, leaves, f"layers.{li}", f"layer_{li}")
+        li += 1
+
+
+def _spectral_net_state_dict(leaves: _Leaves) -> dict[str, torch.Tensor]:
+    """The leaves LanczosNet and AdaLanczosNet share: the embedding, the
+    filter bank, the layers and the head."""
+    out = {}
+    _embedding(out, leaves)
+    if leaves.has("spectral_filters"):
+        for name in ("w1", "b1", "w2", "b2"):
+            out[f"spectral_filters.{name}"] = leaves.take("spectral_filters", name)
+    _layers(out, leaves)
+    _head(out, leaves)
     return out
 
 
 def lanczos_net_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The ``params`` of a flax ``LanczosNet`` (numpy leaves), with
-    either head → the ``state_dict`` of
+    either head, ``sum_dense`` or not → the ``state_dict`` of
     ``lanczosnet_torch.models.LanczosNet``."""
     leaves = _Leaves(params)
     out = _spectral_net_state_dict(leaves)
@@ -106,3 +123,80 @@ def ada_lanczos_net_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Ten
     _linear(out, leaves, "kernel_embed", "kernel_embed")
     leaves.check_all_used()
     return out
+
+
+def gcn_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``params`` of a flax ``GCN``, ``GraphSAGE``, ``DCNN`` or
+    ``ChebyNet`` (one tree: the embedding, ``layer_<i>`` and the head)
+    → the ``state_dict`` of the port's model of that name."""
+    leaves = _Leaves(params)
+    out = {}
+    _embedding(out, leaves)
+    _layers(out, leaves)
+    _head(out, leaves)
+    leaves.check_all_used()
+    return out
+
+
+def gat_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``params`` of a flax ``GAT``: ``layer_<i>/{w,a_src,a_dst}_<e>``
+    kernels (no biases) → ``layers.<i>.{w,a_src,a_dst}.<e>.weight``."""
+    leaves = _Leaves(params)
+    out = {}
+    _embedding(out, leaves)
+    li = 0
+    while leaves.has(f"layer_{li}"):
+        e = 0
+        while leaves.has(f"layer_{li}", f"w_{e}"):
+            for name in ("w", "a_src", "a_dst"):
+                _linear(out, leaves, f"layers.{li}.{name}.{e}", f"layer_{li}", f"{name}_{e}",
+                        bias=False)
+            e += 1
+        li += 1
+    _head(out, leaves)
+    leaves.check_all_used()
+    return out
+
+
+def mpnn_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``params`` of a flax ``MPNN``: the raw ``w_msg``, ``gru_w_in``,
+    ``gru_w_st`` and ``gru_b`` keep their layout; ``in_proj``, where node
+    features made one, is a Dense."""
+    leaves = _Leaves(params)
+    out = {}
+    _embedding(out, leaves)
+    if leaves.has("in_proj"):
+        _linear(out, leaves, "in_proj", "in_proj")
+    for name in ("w_msg", "gru_w_in", "gru_w_st", "gru_b"):
+        out[name] = leaves.take(name)
+    _head(out, leaves)
+    leaves.check_all_used()
+    return out
+
+
+def gpnn_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``params`` of a flax ``GPNN``: its schedule's Denses
+    ``intra_*``, ``cut_*`` and ``carry_*`` → ``dense.<name>``."""
+    leaves = _Leaves(params)
+    out = {}
+    _embedding(out, leaves)
+    for name in sorted(params):
+        if name.split("_")[0] in ("intra", "cut", "carry"):
+            _linear(out, leaves, f"dense.{name}", name)
+    _head(out, leaves)
+    leaves.check_all_used()
+    return out
+
+
+#: the map of each model of the registry, by its ``model.name``
+STATE_DICT_MAPS = {
+    "GCN": gcn_state_dict,
+    "GraphSAGE": gcn_state_dict,
+    "DCNN": gcn_state_dict,
+    "ChebyNet": gcn_state_dict,
+    "GAT": gat_state_dict,
+    "MPNN": mpnn_state_dict,
+    "GPNN": gpnn_state_dict,
+    "LanczosNet": lanczos_net_state_dict,
+    "AdaLanczosNet": ada_lanczos_net_state_dict,
+}

@@ -94,7 +94,7 @@ def test_pack_citation_equals_jax(pad_to, kind):
             recon(got.ritz_val.numpy(), got.ritz_vec.numpy()),
             recon(np.asarray(want.ritz_val), np.asarray(want.ritz_vec)), atol=1e-3,
         )
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A9"):
         pack_citation(graph, num_cluster=4, device="cpu")
 
 

@@ -15,17 +15,26 @@ kernel (N > 128) to its contract, 1e-4 on all six outputs and the same
 breakdown step, and the test prints the error it found. Packing on the
 card launches the shared-memory kernel once per chunk of 256 graphs and
 gives the plain version's Ritz pairs exactly; ``QM8Runner``'s resident
-epochs and its per-step path agree on the card (1e-6).
+epochs and its per-step path agree on the card (1e-6). Each dense model
+of the QM8 configs, at full width, gives the CPU's outputs and
+gradients on the card (1e-4, float32, gradients relative to each
+parameter's largest entry); the bfloat16 flagship's card and CPU outputs
+differ by no more than bfloat16 differs from float32 on the card; QM8
+AdaLanczosNet's kernel and plain forwards agree in predictions and in
+the ``kernel_embed`` gradient (1e-4).
 """
 
+import copy
 import json
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from lanczosnet_torch.data.dataset import pack_dataset
+from lanczosnet_torch.data.loader import to_device
 from lanczosnet_torch.data.qm8 import synthetic_qm8_graphs
 from lanczosnet_torch.ops import _build, lanczos_cuda
 from lanczosnet_torch.ops.lanczos import lanczos_tridiag_resid, lanczos_tridiag_resid_stream
@@ -35,7 +44,10 @@ from lanczosnet_torch.ops.lanczos_cuda import (
     lanczos_tridiag_cuda_resid,
     ritz_from_tridiag,
 )
+from lanczosnet_torch.models import build_model
+from lanczosnet_torch.ops.precision import bf16_f32_accumulation
 from lanczosnet_torch.train.runner import QM8Runner
+from lanczosnet_torch.utils.config import loads
 
 pytestmark = pytest.mark.cuda
 
@@ -310,3 +322,81 @@ def test_resident_epochs_on_the_card_equal_the_per_step_path(card, tmp_path):
         assert np.isfinite(res["test_mae"])
         assert runner.test()["test_mae"] == pytest.approx(res["test_mae"], abs=1e-6)
     np.testing.assert_allclose(vals["resident"], vals["per-step"], rtol=0, atol=1e-6)
+
+
+def qm8_model_and_pack(config: str, num: int = 16, **overrides):
+    """The model of ``configs/<config>.yaml`` at full width, its weights
+    drawn from seed 0, and ``num`` QM8-like graphs packed on the CPU as
+    the config packs them."""
+    cfg = loads((Path(__file__).resolve().parents[1] / "configs" / f"{config}.yaml").read_text())
+    mcfg, dcfg = {**cfg["model"], **overrides}, cfg["dataset"]
+    model = build_model({**mcfg, "num_atom": 8, "num_task": 16})
+    model.init_weights(torch.Generator().manual_seed(0))
+    pack = pack_dataset(
+        synthetic_qm8_graphs(num, seed=3), n_max=32, operator_kind=dcfg["operator_kind"],
+        num_eig_vec=int(mcfg.get("num_eig_vec", 20)) if mcfg["name"] == "LanczosNet" else 0,
+        num_cluster=int(mcfg.get("num_partition", 2)) if mcfg["name"] == "GPNN" else 0,
+        device="cpu")
+    return model, pack.slice_batch(np.arange(num))
+
+
+def outputs_and_grads(model, batch, weight):
+    """Eval-mode outputs and the gradient of ``Σ weight·outputs``."""
+    model.eval().zero_grad(set_to_none=True)
+    with bf16_f32_accumulation():
+        out = model(batch)
+        (out * weight).sum().backward()
+    return out.detach().cpu(), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("config", ["qm8_gcn", "qm8_graph_sage", "qm8_dcnn", "qm8_chebynet",
+                                    "qm8_gat", "qm8_mpnn", "qm8_gpnn"])
+def test_dense_model_on_the_card_matches_the_cpu(card, config):
+    model, batch = qm8_model_and_pack(config)
+    weight = torch.randn(16, 16, generator=torch.Generator().manual_seed(1))
+    want, want_g = outputs_and_grads(model, batch, weight)
+    got, got_g = outputs_and_grads(copy.deepcopy(model).to(card), to_device(batch, card),
+                                   weight.to(card))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    for name, g in want_g.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        torch.testing.assert_close(got_g[name] / scale, g / scale, rtol=0, atol=1e-4, msg=name)
+
+
+def test_bf16_flagship_on_the_card_stays_within_bf16_of_the_cpu(card):
+    """Both round to bfloat16 at their GEMMs' outputs, summing in other
+    orders: the card's and the CPU's bfloat16 outputs may differ, but by
+    no more than bfloat16 differs from float32 with the same weights."""
+    model, batch = qm8_model_and_pack("qm8_lanczos_net_bf16")
+    f32 = copy.deepcopy(model)
+    f32.dtype = torch.float32
+    for layer in f32.layers:
+        layer.act_dtype = torch.float32
+    with torch.inference_mode(), bf16_f32_accumulation():
+        cpu = model.eval()(batch)
+        dev = to_device(batch, card)
+        got = copy.deepcopy(model).to(card).eval()(dev).cpu()
+        ref = f32.to(card).eval()(dev).cpu()
+    gap = float((got - ref).abs().max())
+    err = float((got - cpu).abs().max())
+    print(f"bf16 flagship: card vs CPU {err}, bf16 vs float32 on the card {gap}")
+    assert torch.isfinite(got).all() and 0.0 < gap and err <= gap and err <= 2e-2
+
+
+def test_qm8_ada_kernel_and_plain_forwards_agree_on_the_card(card):
+    model, batch = qm8_model_and_pack("qm8_ada_lanczos_net", num=64)
+    model, batch = model.to(card), to_device(batch, card)
+    weight = torch.randn(64, 16, generator=torch.Generator().manual_seed(2)).to(card)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        model.lanczos_impl = impl
+        before = lanczos_cuda.launches.count
+        out, grads = outputs_and_grads(model, batch, weight)
+        assert lanczos_cuda.launches.count == before + (impl == "kernel")
+        runs[impl] = out, grads["kernel_embed.weight"]
+    scale = float(runs["plain"][1].abs().max())
+    assert scale > 0 and torch.isfinite(runs["kernel"][1]).all()
+    torch.testing.assert_close(runs["kernel"][0], runs["plain"][0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(runs["kernel"][1] / scale, runs["plain"][1] / scale,
+                               rtol=0, atol=1e-4)

@@ -140,14 +140,22 @@ def test_integer_pow_is_exact_like_jax():
     ],
 )
 def test_unported_options_name_their_roadmap_item(overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model({**model_cfg(NARROW), **overrides})
+    """These options raised naming their ROADMAP item (A3, A7) until they
+    were ported; they build now, and nothing in the registry refuses by
+    those names."""
+    model = build_model({**model_cfg(NARROW), **overrides})
+    assert type(model).__name__ == overrides.get("name", "LanczosNet")
+    if "dtype" in overrides:
+        assert model.dtype == torch.bfloat16
+    assert getattr(model, "sum_dense", False) == overrides.get("sum_dense", False)
 
 
 def test_factored_path_names_its_roadmap_item():
     """Above 128 nodes the model takes the factored path (it raised
-    naming ROADMAP A3 before that path was ported); what is left of A3
-    on it, ``sum_dense``, still raises by that name."""
+    naming ROADMAP A3 before that path was ported). ``sum_dense``, the
+    last of A3 on it, is ported: on the factored path the layer is the
+    ``Linear`` on the concat, as in the JAX package, so both give the
+    same output."""
     cfg = model_cfg(NARROW)
     model = build_model(cfg).eval()
     n, k = 130, cfg["num_eig_vec"]
@@ -158,5 +166,6 @@ def test_factored_path_names_its_roadmap_item():
     )
     out = model(batch)
     assert out.shape == (1, 16) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="A3"):
-        build_model({**cfg, "sum_dense": True})
+    summed = build_model({**cfg, "sum_dense": True}).eval()
+    summed.load_state_dict(model.state_dict(), strict=True)
+    assert torch.equal(summed(batch), out)

@@ -33,6 +33,7 @@ from lanczosnet_tpu.data.dataset import load_packed as jax_load_packed
 from lanczosnet_tpu.data.dataset import pack_dataset as jax_pack_dataset
 from lanczosnet_tpu.data.dataset import save_packed as jax_save_packed
 from lanczosnet_tpu.data.loader import BatchLoader as JaxBatchLoader
+from lanczosnet_tpu.data.partition import spectral_partition_batch as jax_spectral_partition_batch
 from lanczosnet_tpu.data.qm8 import import_reference_pickles as jax_import_reference_pickles
 from lanczosnet_tpu.models import build_model as jax_build_model
 from lanczosnet_tpu.train.optim import build_optimizer as jax_build_optimizer
@@ -160,8 +161,12 @@ def test_pack_reuses_stats_chunks_ritz_and_refuses_what_is_not_ported(monkeypatc
     np.testing.assert_allclose(recon(d4, v4), recon(ds.ritz_val, ds.ritz_vec), atol=1e-4)
     batch = ds.slice_batch(np.array([3, 0, 3]))
     assert batch.ops.shape == (3, 5, 16, 16) and torch.equal(batch.atom_type[0], batch.atom_type[2])
-    with pytest.raises(NotImplementedError, match="A7"):
-        pack_dataset(graphs, n_max=16, num_cluster=2, device="cpu")
+    # GPNN's partition: channel 0 of the packed operators through the
+    # JAX package's spectral partition, exactly
+    parted = pack_dataset(graphs, n_max=16, num_cluster=2, device="cpu")
+    np.testing.assert_array_equal(
+        parted.cluster, jax_spectral_partition_batch(parted.ops[:, 0], parted.mask, 2))
+    assert parted.cluster.dtype == np.int32 and parted.slice_batch(np.arange(2)).cluster.shape == (2, 16)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pack_dataset(graphs, n_max=16)
@@ -435,8 +440,6 @@ def test_refused_runners_and_sources(tmp_path):
         build_runner({**cfg, "runner": "Nope"}, "cpu")
     with pytest.raises(ValueError, match="unknown dataset source"):
         QM8Runner({**cfg, "dataset": {**cfg["dataset"], "source": "rdkit"}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        QM8Runner({**cfg, "model": {**cfg["model"], "name": "GPNN"}}, device="cpu")
 
 
 def test_runner_reads_packed_and_reference_pickle_sources(tmp_path, pack_cache):
@@ -548,3 +551,52 @@ def test_predictor_from_run_dir_serves_the_trained_run(tmp_path, pack_cache, cpu
     np.testing.assert_allclose(served, want, rtol=0, atol=1e-4)
     (rec,) = events(tmp_path / "serve", "serving_latency")
     assert rec["count"] == stats["count"] == 20
+
+
+# the configs that train on the card since the dense models, the bf16 knob
+# and QM8 AdaLanczosNet were ported (the flagship is trained above)
+QM8_CONFIGS = ("qm8_gcn", "qm8_graph_sage", "qm8_dcnn", "qm8_chebynet", "qm8_gat", "qm8_mpnn",
+               "qm8_gpnn", "qm8_lanczos_net_bf16", "qm8_ada_lanczos_net")
+
+
+def narrowed(name: str, save_dir: Path) -> dict:
+    """``configs/<name>.yaml`` with hidden 16 wide, 96/20/20 graphs of at
+    most 16 nodes, batch 16, two epochs and no pack cache."""
+    from lanczosnet_torch.utils.config import loads
+
+    cfg = loads((Path(__file__).resolve().parents[1] / "configs" / f"{name}.yaml").read_text())
+    m = cfg["model"]
+    m["hidden_dim"] = [16] * min(len(m["hidden_dim"]), 2)
+    if "embed_dim" in m:
+        m["embed_dim"] = 16
+    if "num_eig_vec" in m:
+        m.update(num_eig_vec=6, long_diffusion_dist=[3, 5], filter_hidden_dim=8)
+    cfg["dataset"].update(n_max=16, num_train=96, num_val=20, num_test=20, pack_cache=False)
+    cfg["train"].update(batch_size=16, max_epoch=2, lr_decay_epoch=[5])
+    cfg["save_dir"] = str(save_dir)
+    return cfg
+
+
+@pytest.mark.parametrize("name", QM8_CONFIGS)
+def test_every_qm8_config_trains_and_serves_narrowed(tmp_path, name):
+    from lanczosnet_torch.utils.config import save_config
+
+    run = tmp_path / "run"
+    cfg = narrowed(name, run)
+    runner = QM8Runner(cfg, device="cpu")
+    save_config(cfg, run / "config.yaml")  # as load_config does for the CLI
+    res = runner.train()
+    losses = [r["loss"] for r in events(run, "epoch")]
+    assert len(losses) == 2 and np.isfinite(losses).all() and losses[1] < losses[0], losses
+    assert all(np.isfinite(r["mae"]) for r in events(run, "val")) and np.isfinite(res["test_mae"])
+    test = runner.datasets["test"]
+    assert (test.cluster is not None) == (name == "qm8_gpnn")
+
+    # served through the float32 wire (GPNN: with the partition it was
+    # packed with) or the compact one, against the restored model on the pack
+    pred = Predictor.from_run_dir(run, batch_size=8, device="cpu")
+    assert pred.num_cluster == (2 if name == "qm8_gpnn" else 0)
+    graphs = synthetic_qm8_graphs(20, seed=9, n_hi=16)  # the test split
+    with torch.inference_mode():
+        want = pred.model(test.slice_batch(np.arange(20))).numpy() * pred.stats.std + pred.stats.mean
+    np.testing.assert_allclose(pred.predict(graphs), want, rtol=0, atol=1e-4)
