@@ -57,7 +57,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the ``kernel_embed`` gradient (1e-4); a profile counts a step's
    launches. The bfloat16 flagship's packs launch the kernel, and the
    profile of one of its steps names the bfloat16 GEMM kernels.
-7. barrier and stream_kernel: what one grid barrier of the streamed
+7. serve_fronts: the run directories of the two phases before, the
+   flagship's and GPNN's, served by name through ``ModelServer``
+   (``lanczosnet_torch/serve_http.py``, batch 64): first the stdlib HTTP
+   front, 512 one-graph JSON requests from 16 client threads, half to
+   each model (the flagship on the compact wire, GPNN on the float32
+   wire with its partition), every answer finite and within 1e-4 of
+   ``Predictor.from_run_dir`` on the same graphs, a body that is not a
+   JSON object and a graph that does not decode each answered 400; then
+   the forked native front (``lanczosnet_torch/native/servefront.cc``,
+   built with g++ first), 256 graphs each sent as JSON and as the LNG1
+   binary wire, within 1e-4 of the same and of each other, JSON bodies
+   transcoded in C++, and four requests pipelined on one keep-alive
+   connection answered in request order. Last the flagship is exported
+   on the card (``lanczosnet_torch/export.py``), loaded back and held to
+   the Predictor within 1e-5 with TF32 switched on around the call,
+   served through a ``ModelServer`` built from the artifact directory,
+   and timed in-process beside the Predictor (in turns). The
+   shared-memory kernel's launch count must grow on each of the three
+   paths; req/s and p50/p95 are printed for each front.
+8. barrier and stream_kernel: what one grid barrier of the streamed
    kernel's cooperative launch costs (a launch of barriers and nothing
    else); then the streamed Lanczos kernel (N > 128) against its plain
    version on the card, the same contract, on masked random operators at
@@ -68,7 +87,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    then both timed at that shape, and the kernel compared once more
    after the timing loop, so that state left from call to call would
    show.
-8. citation_train: ``CitationRunner`` trains the AdaLanczosNet of
+9. citation_train: ``CitationRunner`` trains the AdaLanczosNet of
    ``configs/cora_ada_lanczos_net.yaml`` at full width on a synthetic
    Cora-sized graph (N=2708, F=1433, 7 classes) for a few epochs and
    tests it; the streamed kernel's call count must grow by at least one
@@ -76,17 +95,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    below the first's, and eval-mode logits and the ``kernel_embed``
    gradient agree between the kernel forward and the plain forward
    (1e-4); step times and the stage split are printed.
-9. kernels: one line per ported kernel, its error, its time, its bound,
+10. kernels: one line per ported kernel, its error, its time, its bound,
    its latency floor and its launches, all of this run (the
    shared-memory kernel's launches by path: serving, the flagship's
-   packs, the bfloat16 flagship's run and QM8 AdaLanczosNet's run).
+   packs, the bfloat16 flagship's run, QM8 AdaLanczosNet's run, the HTTP
+   front, the native front and the served artifact; it runs behind the
+   custom operator ``lanczosnet::lanczos_tridiag_resid``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
+import socket
 import subprocess
 import tempfile
 import threading
@@ -96,11 +119,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from lanczosnet_torch import cli
+from lanczosnet_torch import cli, serve_native
 from lanczosnet_torch.core.graph_batch import batch_graphs
 from lanczosnet_torch.data.dataset import RITZ_CHUNK, pack_dataset
 from lanczosnet_torch.data.loader import to_device
 from lanczosnet_torch.data.qm8 import NUM_ATOM, NUM_TASK, synthetic_qm8_graphs
+from lanczosnet_torch.export import export_predictor, load_predictor
 from lanczosnet_torch.models import build_model
 from lanczosnet_torch.ops.precision import bf16_f32_accumulation
 from lanczosnet_torch.ops import _build, lanczos_cuda
@@ -113,6 +137,7 @@ from lanczosnet_torch.ops.lanczos import (
 from lanczosnet_torch.ops.lanczos_cuda import LanczosTridiag, ritz_from_tridiag
 from lanczosnet_torch.ops.normalize import build_operator_stack
 from lanczosnet_torch.serve import MicroBatcher, Predictor
+from lanczosnet_torch.serve_http import ModelServer, make_http_server, serve_forever_in_thread
 from lanczosnet_torch.train.citation_runner import CitationRunner
 from lanczosnet_torch.train.node_step import (
     make_node_eval_step,
@@ -200,6 +225,9 @@ OUTPUTS = ("alphas", "betas_full", "q", "p1", "p2", "w4")
 EPS = 1e-6
 NUM_REQUESTS = 2048
 NUM_CLIENTS = 16
+FRONT_REQUESTS = 512  # per front, from FRONT_CLIENTS threads
+FRONT_CLIENTS = 16
+ARTIFACT_TOL = 1e-5  # the artifact against the Predictor it was exported from
 
 # H100 SXM data sheet (at the 700 W limit): HBM rate and float32 rate
 # outside the tensor cores
@@ -594,110 +622,110 @@ def only_run_dir(exp_dir: Path, suffix: str) -> Path:
     return runs[0]
 
 
-def phase_qm8_train(dev, smi: str) -> int:
-    """Train the flagship through the CLI, test it with ``-t``, serve it
-    with ``Predictor.from_run_dir``. Returns the shared-memory kernel's
-    launches in the training run (the three packs)."""
+def phase_qm8_train(dev, smi: str, tmp: Path) -> tuple[int, Path]:
+    """Train the flagship through the CLI in ``tmp``, test it with ``-t``,
+    serve it with ``Predictor.from_run_dir``. Returns the shared-memory
+    kernel's launches in the training run (the three packs) and the run
+    directory."""
     cfg = config_io.loads(QM8_CONFIG.read_text())
     mcfg, dcfg, tcfg = cfg["model"], cfg["dataset"], cfg["train"]
     k, bs = int(mcfg["num_eig_vec"]), int(tcfg["batch_size"])
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_qm8_") as tmp:
-        tmp = Path(tmp)
-        cut = {"train.max_epoch": (tcfg["max_epoch"], QM8_EPOCHS),
-               "exp_dir": (cfg.get("exp_dir"), str(tmp / "exp")),
-               "dataset.pack_cache": (dcfg.get("pack_cache"), False)}
-        tcfg["max_epoch"], cfg["exp_dir"], dcfg["pack_cache"] = (new for _, new in cut.values())
-        copy = tmp / "qm8_lanczos_net.yaml"
-        copy.write_text(config_io.dumps(cfg))
+    tmp.mkdir(parents=True)
+    cut = {"train.max_epoch": (tcfg["max_epoch"], QM8_EPOCHS),
+           "exp_dir": (cfg.get("exp_dir"), str(tmp / "exp")),
+           "dataset.pack_cache": (dcfg.get("pack_cache"), False)}
+    tcfg["max_epoch"], cfg["exp_dir"], dcfg["pack_cache"] = (new for _, new in cut.values())
+    copy = tmp / "qm8_lanczos_net.yaml"
+    copy.write_text(config_io.dumps(cfg))
 
-        lanczos_cuda.launches.reset()
-        lanczos_cuda.stream_launches.reset()
-        t0 = time.perf_counter()
-        rc = cli.main(["-c", str(copy)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = lanczos_cuda.launches.count
-        if rc != 0:
-            raise SmokeFailure(f"lanczosnet_torch.cli -c {copy} exited {rc}")
-        run_dir = only_run_dir(tmp / "exp", "_train")
-        recs = read_metrics(run_dir)
-        losses = [r["loss"] for r in recs if r["event"] == "epoch"]
-        gps = [r["graphs_per_sec"] for r in recs if r["event"] == "epoch"]
-        val = [r["mae"] for r in recs if r["event"] == "val"]
-        test_mae = [r["mae"] for r in recs if r["event"] == "test"]
-        packs = {r["split"]: r for r in recs if r["event"] == "pack"}
-        setup = [r for r in recs if r["event"] == "setup"]
-        chunks = sum(-(-r["graphs"] // RITZ_CHUNK) for r in packs.values())
+    lanczos_cuda.launches.reset()
+    lanczos_cuda.stream_launches.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(["-c", str(copy)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lanczos_cuda.launches.count
+    if rc != 0:
+        raise SmokeFailure(f"lanczosnet_torch.cli -c {copy} exited {rc}")
+    run_dir = only_run_dir(tmp / "exp", "_train")
+    recs = read_metrics(run_dir)
+    losses = [r["loss"] for r in recs if r["event"] == "epoch"]
+    gps = [r["graphs_per_sec"] for r in recs if r["event"] == "epoch"]
+    val = [r["mae"] for r in recs if r["event"] == "val"]
+    test_mae = [r["mae"] for r in recs if r["event"] == "test"]
+    packs = {r["split"]: r for r in recs if r["event"] == "pack"}
+    setup = [r for r in recs if r["event"] == "setup"]
+    chunks = sum(-(-r["graphs"] // RITZ_CHUNK) for r in packs.values())
 
-        # the packed test split's Ritz pairs against the plain version, in
-        # the pack's own chunk (the split is one chunk of 256 graphs)
-        test_graphs = synthetic_qm8_graphs(
-            int(dcfg["num_test"]), seed=int(dcfg.get("seed", 7)) + 2,
-            n_hi=min(int(dcfg["n_max"]), 28))
-        lanczos_cuda.launches.reset()
-        pack = pack_dataset(test_graphs, n_max=int(dcfg["n_max"]),
-                            operator_kind=dcfg["operator_kind"], num_eig_vec=k, device=dev)
-        pack_launches = lanczos_cuda.launches.count
-        ritz_err = {"ritz_val": 0.0, "ritz_vec": 0.0}
-        for lo in range(0, len(pack), RITZ_CHUNK):
-            s = torch.from_numpy(pack.ops[lo: lo + RITZ_CHUNK, 0]).to(dev).contiguous()
-            m = torch.from_numpy(pack.mask[lo: lo + RITZ_CHUNK]).to(dev)
-            alphas, betas, q, *_ = lanczos_tridiag_resid(s, m, k, EPS)
-            vals, vecs = ritz_from_tridiag(alphas, betas[:, : k - 1], q)
-            for name, got in (("ritz_val", vals), ("ritz_vec", vecs)):
-                want = torch.from_numpy(getattr(pack, name)[lo: lo + RITZ_CHUNK]).to(dev)
-                ritz_err[name] = max(ritz_err[name], float((got - want).abs().max()))
-            if max(ritz_err.values()) != 0.0:
-                kern = lanczos_cuda.lanczos_tridiag_cuda_resid(s, m, k, EPS)
-                tri = {o: float((a - b).abs().max()) for o, a, b in
-                       zip(OUTPUTS[:3], kern[:3], (alphas, betas, q))}
-                raise SmokeFailure(
-                    f"packed Ritz pairs differ from the plain version's: {ritz_err}; "
-                    f"kernel against plain version in alpha, beta, Q: {tri}")
+    # the packed test split's Ritz pairs against the plain version, in
+    # the pack's own chunk (the split is one chunk of 256 graphs)
+    test_graphs = synthetic_qm8_graphs(
+        int(dcfg["num_test"]), seed=int(dcfg.get("seed", 7)) + 2,
+        n_hi=min(int(dcfg["n_max"]), 28))
+    lanczos_cuda.launches.reset()
+    pack = pack_dataset(test_graphs, n_max=int(dcfg["n_max"]),
+                        operator_kind=dcfg["operator_kind"], num_eig_vec=k, device=dev)
+    pack_launches = lanczos_cuda.launches.count
+    ritz_err = {"ritz_val": 0.0, "ritz_vec": 0.0}
+    for lo in range(0, len(pack), RITZ_CHUNK):
+        s = torch.from_numpy(pack.ops[lo: lo + RITZ_CHUNK, 0]).to(dev).contiguous()
+        m = torch.from_numpy(pack.mask[lo: lo + RITZ_CHUNK]).to(dev)
+        alphas, betas, q, *_ = lanczos_tridiag_resid(s, m, k, EPS)
+        vals, vecs = ritz_from_tridiag(alphas, betas[:, : k - 1], q)
+        for name, got in (("ritz_val", vals), ("ritz_vec", vecs)):
+            want = torch.from_numpy(getattr(pack, name)[lo: lo + RITZ_CHUNK]).to(dev)
+            ritz_err[name] = max(ritz_err[name], float((got - want).abs().max()))
+        if max(ritz_err.values()) != 0.0:
+            kern = lanczos_cuda.lanczos_tridiag_cuda_resid(s, m, k, EPS)
+            tri = {o: float((a - b).abs().max()) for o, a, b in
+                   zip(OUTPUTS[:3], kern[:3], (alphas, betas, q))}
+            raise SmokeFailure(
+                f"packed Ritz pairs differ from the plain version's: {ritz_err}; "
+                f"kernel against plain version in alpha, beta, Q: {tri}")
 
-        # -t on the best checkpoint
-        best = run_dir / "checkpoints" / "best.pt"
-        cfg["test"] = {**(cfg.get("test") or {}), "test_model": str(best)}
-        copy_t = tmp / "qm8_lanczos_net_test.yaml"
-        copy_t.write_text(config_io.dumps(cfg))
-        rc_t = cli.main(["-c", str(copy_t), "-t"])
-        if rc_t != 0:
-            raise SmokeFailure(f"lanczosnet_torch.cli -c {copy_t} -t exited {rc_t}")
-        retest = [r["mae"] for r in read_metrics(only_run_dir(tmp / "exp", "_test"))
-                  if r["event"] == "test"]
+    # -t on the best checkpoint
+    best = run_dir / "checkpoints" / "best.pt"
+    cfg["test"] = {**(cfg.get("test") or {}), "test_model": str(best)}
+    copy_t = tmp / "qm8_lanczos_net_test.yaml"
+    copy_t.write_text(config_io.dumps(cfg))
+    rc_t = cli.main(["-c", str(copy_t), "-t"])
+    if rc_t != 0:
+        raise SmokeFailure(f"lanczosnet_torch.cli -c {copy_t} -t exited {rc_t}")
+    retest = [r["mae"] for r in read_metrics(only_run_dir(tmp / "exp", "_test"))
+              if r["event"] == "test"]
 
-        # serve the run, against the restored model on the packed batches
-        pred = Predictor.from_run_dir(run_dir, device=dev)
-        mb = MicroBatcher(pred, max_delay_ms=5.0)
-        try:
-            futs = [mb.submit(g) for g in test_graphs]
-            served = np.stack([f.result(timeout=300) for f in futs])
-            serve_stats = mb.latency_stats()
-        finally:
-            mb.close()
-        model = pred.model
-        stats = pred.stats
-        restored = []
-        with torch.inference_mode():
-            for lo in range(0, len(pack), bs):
-                batch = pack.slice_batch(np.arange(lo, min(lo + bs, len(pack))))
-                batch = to_device(batch, dev)
-                restored.append(model(batch).cpu().numpy())
-        restored = np.concatenate(restored) * stats.std + stats.mean
-        serve_err = float(np.abs(served - restored).max())
+    # serve the run, against the restored model on the packed batches
+    pred = Predictor.from_run_dir(run_dir, device=dev)
+    mb = MicroBatcher(pred, max_delay_ms=5.0)
+    try:
+        futs = [mb.submit(g) for g in test_graphs]
+        served = np.stack([f.result(timeout=300) for f in futs])
+        serve_stats = mb.latency_stats()
+    finally:
+        mb.close()
+    model = pred.model
+    stats = pred.stats
+    restored = []
+    with torch.inference_mode():
+        for lo in range(0, len(pack), bs):
+            batch = pack.slice_batch(np.arange(lo, min(lo + bs, len(pack))))
+            batch = to_device(batch, dev)
+            restored.append(model(batch).cpu().numpy())
+    restored = np.concatenate(restored) * stats.std + stats.mean
+    serve_err = float(np.abs(served - restored).max())
 
-        # one training step at batch 64, by stage, and a profile of 5 steps
-        step_model = build_model({**mcfg, "num_atom": NUM_ATOM, "num_task": NUM_TASK})
-        step_model.load_state_dict(Checkpointer.restore_file(best)["model"])
-        step_model.to(dev)
-        batch = to_device(pack.slice_batch(np.arange(bs)), dev)
-        valid = torch.ones(bs, device=dev)
-        optimizer, scheduler, clip = build_optimizer(
-            step_model.parameters(), tcfg, int(dcfg["num_train"]) // bs)
-        train_step = make_train_step(step_model, optimizer, scheduler, clip)
-        step_ms = host_ms(lambda: train_step(batch, valid), 20, 3)
-        stages = qm8_stage_breakdown(step_model, optimizer, batch, valid)
-        trace = profile_train_steps(train_step, batch, valid, step_ms)
+    # one training step at batch 64, by stage, and a profile of 5 steps
+    step_model = build_model({**mcfg, "num_atom": NUM_ATOM, "num_task": NUM_TASK})
+    step_model.load_state_dict(Checkpointer.restore_file(best)["model"])
+    step_model.to(dev)
+    batch = to_device(pack.slice_batch(np.arange(bs)), dev)
+    valid = torch.ones(bs, device=dev)
+    optimizer, scheduler, clip = build_optimizer(
+        step_model.parameters(), tcfg, int(dcfg["num_train"]) // bs)
+    train_step = make_train_step(step_model, optimizer, scheduler, clip)
+    step_ms = host_ms(lambda: train_step(batch, valid), 20, 3)
+    stages = qm8_stage_breakdown(step_model, optimizer, batch, valid)
+    trace = profile_train_steps(train_step, batch, valid, step_ms)
 
     flops = qm8_train_flops_per_graph(
         mcfg["hidden_dim"], int(dcfg["n_max"]), k, mcfg["short_diffusion_dist"],
@@ -729,7 +757,7 @@ def phase_qm8_train(dev, smi: str) -> int:
         raise SmokeFailure(f"-t gave test MAE {retest}, the training run {test_mae}")
     if served.shape != restored.shape or not (np.isfinite(served).all() and serve_err <= TOL):
         raise SmokeFailure(f"served answers differ from the restored model by {serve_err} > {TOL}")
-    return launches
+    return launches, run_dir
 
 
 def qm8_config_copy(name: str, tmp: Path) -> tuple[Path, dict, dict]:
@@ -762,21 +790,38 @@ def device_kernels(fn) -> dict[str, int]:
             and not e.key.startswith(("Optimizer.", "ProfilerStep"))}
 
 
-def bf16_gemm_kernels(model, train_step, batch, valid) -> dict:
+def bf16_gemm_kernels(model, train_step, batch, valid, probe_calls: int = 8,
+                      probe_traces: int = 3) -> dict:
     """The bfloat16 GEMM kernels of one training step: the kernels that a
     bfloat16 ``F.linear`` at the first layer's shape launches alone (with
     its cast operands made before the trace), found again in the trace
-    of the step. Beside them, the step's ten most launched kernels."""
+    of the step. Beside them, the step's ten most launched kernels.
+
+    The probe traces ``probe_calls`` calls after one untraced call. A
+    trace of a few microseconds of device work can come back from the
+    profiler with no device event at all, although a bfloat16 GEMM
+    always launches a kernel; such an empty trace is taken again, at
+    most ``probe_traces`` times in all, and the number taken is kept."""
     layer = model.layers[0]
     rows = batch.mask.numel()
     x = torch.randn(rows, layer.in_features, device=batch.mask.device, dtype=torch.bfloat16)
     w, b = layer.weight.detach().bfloat16(), layer.bias.detach().bfloat16()
+
+    def linear_calls():
+        for _ in range(probe_calls):
+            torch.nn.functional.linear(x, w, b)
+
     with bf16_f32_accumulation():
-        probe = device_kernels(lambda: torch.nn.functional.linear(x, w, b))
+        torch.nn.functional.linear(x, w, b)
+        for traces in range(1, probe_traces + 1):
+            probe = device_kernels(linear_calls)
+            if probe:
+                break
     step = device_kernels(lambda: train_step(batch, valid))
     found = {name[:100]: step[name] for name in probe if name in step}
     top = sorted(step.items(), key=lambda kv: -kv[1])[:10]
     return {"bf16_gemm_kernels": found, "bf16_linear_probe_kernels": [k[:100] for k in probe],
+            "bf16_linear_probe_traces": traces,
             "step_kernel_launches": sum(step.values()),
             "step_top_kernels": {k[:100]: v for k, v in top}}
 
@@ -811,7 +856,8 @@ def qm8_run(name: str, tmp: Path, dev, smi: str) -> dict:
     gps = [r["graphs_per_sec"] for r in recs if r["event"] == "epoch"]
     val = [r["mae"] for r in recs if r["event"] == "val"]
     test_mae = [r["mae"] for r in recs if r["event"] == "test"]
-    out = dict(config=f"{name}.yaml", cut=cut, epochs=len(losses), seconds=wall,
+    out = dict(config=f"{name}.yaml", run_dir=str(run_dir), cut=cut, epochs=len(losses),
+               seconds=wall,
                epoch_loss=losses, val_mae=val, test_mae=test_mae, graphs_per_sec=gps,
                graphs_per_sec_median_epochs_1_2=float(np.median(gps[1:3])),
                lanczos_tridiag_launches=launches, lanczos_stream_launches=stream_launches,
@@ -917,6 +963,10 @@ def qm8_run(name: str, tmp: Path, dev, smi: str) -> dict:
         out.update(bf16_gemm_kernels(model, train_step, dev_batch, valid))
         if pack_launches < chunks:
             raise SmokeFailure(f"{name}: {chunks} pack chunks launched the kernel {pack_launches} times")
+        if not out["bf16_linear_probe_kernels"]:
+            raise SmokeFailure(
+                f"{name}: the profiler recorded no device kernel of a bfloat16 F.linear in "
+                f"{out['bf16_linear_probe_traces']} traces")
         if not out["bf16_gemm_kernels"]:
             raise SmokeFailure(
                 f"{name}: none of the bfloat16 GEMM's kernels {out['bf16_linear_probe_kernels']} "
@@ -952,14 +1002,14 @@ def ada_kernel_vs_plain(model, batch, valid) -> dict:
             "kernel_embed_grad_abs_max": scale}
 
 
-def phase_qm8_models(dev, smi: str) -> dict:
-    """Every config of ``QM8_MODEL_CONFIGS`` trained, checked and served
-    → the shared-memory kernel's launches in each config's run, by config."""
+def phase_qm8_models(dev, smi: str, tmp: Path) -> tuple[dict, dict]:
+    """Every config of ``QM8_MODEL_CONFIGS`` trained in ``tmp``, checked
+    and served → the shared-memory kernel's launches in each config's run,
+    and each config's run directory, by config."""
     records = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_qm8_models_") as tmp:
-        for name in QM8_MODEL_CONFIGS:
-            (Path(tmp) / name).mkdir()
-            records[name] = qm8_run(name, Path(tmp) / name, dev, smi)
+    for name in QM8_MODEL_CONFIGS:
+        (tmp / name).mkdir(parents=True)
+        records[name] = qm8_run(name, tmp / name, dev, smi)
     emit("qm8_models", configs=list(records),
          graphs_per_sec={n: r["graphs_per_sec_median_epochs_1_2"] for n, r in records.items()},
          train_step_ms={n: r["train_step_ms"] for n, r in records.items()},
@@ -968,7 +1018,248 @@ def phase_qm8_models(dev, smi: str) -> dict:
          device_busy_ms_per_step={n: r["profiler"].get("device_busy_ms_per_step")
                                   for n, r in records.items()},
          test_mae={n: r["test_mae"][0] for n, r in records.items()}, nvidia_smi=smi)
-    return {n: r["lanczos_tridiag_launches"] for n, r in records.items()}
+    return ({n: r["lanczos_tridiag_launches"] for n, r in records.items()},
+            {n: Path(r["run_dir"]) for n, r in records.items()})
+
+
+def client_calls(port: int, jobs: list[tuple[str, bytes]], clients: int) -> tuple[float, list, list]:
+    """``jobs`` (path, body) POSTed to ``127.0.0.1:port`` by ``clients``
+    threads, each on one keep-alive connection, job i by thread i mod
+    ``clients`` → (wall seconds, [(status, body)] by job, client-side
+    latencies in ms)."""
+    out, lat, errors = [None] * len(jobs), [None] * len(jobs), []
+
+    def client(c: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for i in range(c, len(jobs), clients):
+                t0 = time.perf_counter()
+                conn.request("POST", jobs[i][0], body=jobs[i][1])
+                resp = conn.getresponse()
+                out[i] = (resp.status, resp.read())
+                lat[i] = (time.perf_counter() - t0) * 1e3
+        except Exception as exc:  # reported below, as the phase's failure
+            errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads) or any(o is None for o in out):
+        raise SmokeFailure(f"front clients failed: {errors[:3]}")
+    return wall, out, lat
+
+
+def latency_summary(lat: list) -> dict:
+    lat = np.asarray(lat, np.float64)
+    return {"p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
+            "mean_ms": float(lat.mean())}
+
+
+def json_body(graphs: list) -> bytes:
+    return json.dumps({"graphs": [{"atom_type": np.asarray(g["atom_type"]).tolist(),
+                                   "adj": np.asarray(g["adj"]).tolist()} for g in graphs]}).encode()
+
+
+def read_http_responses(sock, count: int) -> list[tuple[int, bytes]]:
+    """``count`` HTTP responses read in order from ``sock``."""
+    buf, out = b"", []
+    for _ in range(count):
+        while b"\r\n\r\n" not in buf:
+            chunk = sock.recv(65536)
+            if not chunk:
+                raise SmokeFailure(f"the native front closed after {len(out)} of {count} answers")
+            buf += chunk
+        head, buf = buf.split(b"\r\n\r\n", 1)
+        lines = head.split(b"\r\n")
+        length = int(next(h for h in lines if h.lower().startswith(b"content-length"))
+                     .split(b":")[1])
+        while len(buf) < length:
+            chunk = sock.recv(65536)
+            if not chunk:
+                raise SmokeFailure("the native front closed inside an answer")
+            buf += chunk
+        out.append((int(lines[0].split()[1]), buf[:length]))
+        buf = buf[length:]
+    return out
+
+
+def front_answers(out: list, wires: list) -> np.ndarray:
+    """The predictions of a front's answers, each decoded by its wire."""
+    bad = [(i, st, body[:120]) for i, (st, body) in enumerate(out) if st != 200]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} front requests failed, e.g. {bad[:2]}")
+    return np.concatenate([serve_native.decode_predictions_binary(body) if wire == "lng1"
+                           else np.asarray(json.loads(body)["predictions"], np.float32)
+                           for (_, body), wire in zip(out, wires)])
+
+
+def phase_serve_fronts(dev, smi: str, flagship_run: Path, gpnn_run: Path, tmp: Path) -> dict:
+    """Serve the flagship's and GPNN's trained runs by name through the
+    stdlib HTTP front and the native front, then export the flagship and
+    serve the artifact. Returns the shared-memory kernel's launches of
+    each path."""
+    built = serve_native.build_front()
+    emit("build", front="lanczosnet_torch/native/servefront.cc", seconds=built.seconds,
+         library=built.path.name, log=built.log.splitlines())
+    runs = {"lnet": flagship_run, "gpnn": gpnn_run}
+    refs = {name: Predictor.from_run_dir(run, batch_size=SERVE_BATCH, device=dev)
+            for name, run in runs.items()}
+    graphs = synthetic_qm8_graphs(FRONT_REQUESTS, seed=5)
+    names = ["lnet" if i % 2 == 0 else "gpnn" for i in range(FRONT_REQUESTS)]
+
+    def reference(idx) -> np.ndarray:
+        out = np.zeros((len(idx), NUM_TASK), np.float32)
+        for name, pred in refs.items():
+            mine = [j for j, i in enumerate(idx) if names[i] == name]
+            if mine:
+                out[mine] = pred.predict([graphs[idx[j]] for j in mine])
+        return out
+
+    want = reference(range(FRONT_REQUESTS))
+    srv = ModelServer.from_run_dirs(runs, batch_size=SERVE_BATCH, device=dev)
+    record, launches = {}, {}
+    try:
+        # the stdlib HTTP front, JSON
+        httpd = make_http_server(srv)
+        serve_forever_in_thread(httpd)
+        port = httpd.server_address[1]
+        try:
+            jobs = [(f"/v1/models/{names[i]}:predict", json_body([g])) for i, g in enumerate(graphs)]
+            lanczos_cuda.launches.reset()
+            wall, out, lat = client_calls(port, jobs, FRONT_CLIENTS)
+            launches["serve_http"] = lanczos_cuda.launches.count
+            got = front_answers(out, ["json"] * len(jobs))
+            bad = {label: client_calls(port, [("/v1/models/lnet:predict", body)], 1)[1][0]
+                   for label, body in (("non_object_body", b"[1, 2]"),
+                                       ("bad_graph", b'{"graphs": [{"adj": [[0, 1], [1, 0]]}]}'))}
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        err = float(np.abs(got - want).max())
+        record["http"] = dict(requests=len(jobs), clients=FRONT_CLIENTS, seconds=wall,
+                              requests_per_s=len(jobs) / wall, client_latency=latency_summary(lat),
+                              server_latency={n: srv.stats(n) for n in runs},
+                              max_abs_err_vs_from_run_dir=err,
+                              lanczos_tridiag_launches=launches["serve_http"],
+                              status_of_bad_bodies={k: v[0] for k, v in bad.items()})
+        emit("serve_fronts_http", **record["http"], tol=TOL, nvidia_smi=smi)
+        if not np.isfinite(got).all() or err > TOL:
+            raise SmokeFailure(f"HTTP front answers differ from Predictor.from_run_dir by {err} > {TOL}")
+        if launches["serve_http"] < 1:
+            raise SmokeFailure("the HTTP front's requests never launched the Lanczos kernel")
+        if any(v[0] != 400 for v in bad.values()):
+            raise SmokeFailure(f"bad bodies were not answered 400: {bad}")
+
+        # the native front, each of half the graphs on both wires
+        front = serve_native.NativeFront(srv)
+        try:
+            half = FRONT_REQUESTS // 2
+            idx = [i // 2 for i in range(FRONT_REQUESTS)]
+            wires = ["json" if i % 2 == 0 else "lng1" for i in range(FRONT_REQUESTS)]
+            jobs = [(f"/v1/models/{names[j]}:predict",
+                     json_body([graphs[j]]) if w == "json"
+                     else serve_native.encode_graphs_binary([graphs[j]]))
+                    for j, w in zip(idx, wires)]
+            lanczos_cuda.launches.reset()
+            wall, out, lat = client_calls(front.port, jobs, FRONT_CLIENTS)
+            launches["serve_native"] = lanczos_cuda.launches.count
+            got = front_answers(out, wires)
+            transcoded = front.transcoded()
+            # pipelined on one keep-alive connection: a two-batch request,
+            # an inline GET, a 400 and a small request, answered in order
+            lnet_idx = [i for i in range(FRONT_REQUESTS) if names[i] == "lnet"][:100]
+            body = serve_native.encode_graphs_binary([graphs[i] for i in lnet_idx])
+            sock = socket.create_connection(("127.0.0.1", front.port), timeout=300)
+            try:
+                sock.sendall(b"".join(
+                    b"%s %s HTTP/1.1\r\nHost: x\r\nContent-Length: %d\r\n\r\n%s"
+                    % (method, path, len(b), b) for method, path, b in (
+                        (b"POST", b"/v1/models/lnet:predict", body),
+                        (b"GET", b"/healthz", b""),
+                        (b"POST", b"/v1/models/lnet:predict", b"[]"),
+                        (b"POST", b"/v1/models/lnet:predict", json_body([graphs[lnet_idx[0]]])))))
+                piped = read_http_responses(sock, 4)
+            finally:
+                sock.close()
+        finally:
+            front.close()
+        want_native = want[idx]
+        err = float(np.abs(got - want_native).max())
+        wire_gap = float(np.abs(got[0::2] - got[1::2]).max())
+        piped_status = [st for st, _ in piped]
+        piped_err = float(np.abs(serve_native.decode_predictions_binary(piped[0][1])
+                                 - want[lnet_idx]).max()) if piped_status[0] == 200 else None
+        record["native"] = dict(requests=len(jobs), graphs=half, clients=FRONT_CLIENTS,
+                                seconds=wall, requests_per_s=len(jobs) / wall,
+                                client_latency=latency_summary(lat), transcoded=transcoded,
+                                max_abs_err_vs_from_run_dir=err, json_vs_lng1_max_abs_gap=wire_gap,
+                                pipelined_status=piped_status, pipelined_max_abs_err=piped_err,
+                                lanczos_tridiag_launches=launches["serve_native"])
+        emit("serve_fronts_native", **record["native"], tol=TOL, nvidia_smi=smi)
+        if not np.isfinite(got).all() or err > TOL or wire_gap > TOL:
+            raise SmokeFailure(f"native front answers differ: {err} from Predictor.from_run_dir, "
+                               f"{wire_gap} between the wires (> {TOL})")
+        if transcoded < 1 or launches["serve_native"] < 1:
+            raise SmokeFailure(f"native front: {transcoded} bodies transcoded, "
+                               f"{launches['serve_native']} kernel launches")
+        if piped_status != [200, 200, 400, 200] or piped_err is None or piped_err > TOL:
+            raise SmokeFailure(f"pipelined answers out of order or wrong: {piped_status}, {piped_err}")
+    finally:
+        srv.close()
+
+    # export the flagship on the card and serve the artifact
+    pred = refs["lnet"]
+    t0 = time.perf_counter()
+    art = export_predictor(pred, tmp / "artifact")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_predictor(art, device=dev)
+    load_s = time.perf_counter() - t0
+    lnet_graphs = [graphs[i] for i in range(FRONT_REQUESTS) if names[i] == "lnet"]
+    want_lnet = pred.predict(lnet_graphs)
+    torch.backends.cuda.matmul.allow_tf32 = True  # the artifact pins float32 itself
+    try:
+        got = loaded.predict(lnet_graphs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_err = float(np.abs(got - want_lnet).max())
+    srv = ModelServer.from_run_dirs({"artifact": art}, batch_size=SERVE_BATCH, device=dev)
+    try:
+        lanczos_cuda.launches.reset()
+        served = srv.predict("artifact", lnet_graphs)
+        launches["artifact"] = lanczos_cuda.launches.count
+        art_stats = srv.stats("artifact")
+    finally:
+        srv.close()
+    served_err = float(np.abs(served - want_lnet).max())
+    # in-process request rate of the two predictors, in turns, on one card
+    bench = synthetic_qm8_graphs(NUM_REQUESTS, seed=6)
+    rates = {"predictor": [], "artifact": []}
+    for who in ("predictor", "artifact", "artifact", "predictor"):
+        p_ = pred if who == "predictor" else loaded
+        t0 = time.perf_counter()
+        p_.predict(bench)
+        rates[who].append(NUM_REQUESTS / (time.perf_counter() - t0))
+    record["artifact"] = dict(export_seconds=export_s, load_seconds=load_s,
+                              files=sorted(f.name for f in art.iterdir()),
+                              max_abs_err_vs_predictor_tf32_on=tf32_err,
+                              served_max_abs_err_vs_predictor=served_err,
+                              served_latency=art_stats,
+                              lanczos_tridiag_launches=launches["artifact"],
+                              in_process_requests_per_s=rates, in_process_requests=NUM_REQUESTS)
+    emit("serve_fronts_artifact", **record["artifact"], tol=ARTIFACT_TOL, nvidia_smi=smi)
+    if not np.isfinite(got).all() or tf32_err > ARTIFACT_TOL or served_err > ARTIFACT_TOL:
+        raise SmokeFailure(f"the artifact's answers differ from the Predictor's by {tf32_err} "
+                           f"(TF32 on) and {served_err} (served) > {ARTIFACT_TOL}")
+    if launches["artifact"] < 1:
+        raise SmokeFailure("the served artifact never launched the Lanczos kernel")
+    return launches
 
 
 def citation_config(save_dir: str) -> dict:
@@ -1304,8 +1595,12 @@ def main() -> None:
     barrier = phase_barrier(dev)
     kern = phase_kernel(dev, barrier["small_launch_ms"])
     serve_launches = phase_serve(dev, smi)
-    pack_launches = phase_qm8_train(dev, smi)
-    model_launches = phase_qm8_models(dev, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as runs:
+        runs = Path(runs)
+        pack_launches, flagship_run = phase_qm8_train(dev, smi, runs / "qm8_train")
+        model_launches, model_runs = phase_qm8_models(dev, smi, runs / "qm8_models")
+        front_launches = phase_serve_fronts(dev, smi, flagship_run, model_runs[QM8_MODELS_CLI],
+                                            runs / "serve_fronts")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cora_") as run_dir:
         runner = CitationRunner(citation_config(run_dir), device=dev)
         stream = phase_stream_kernel(dev, runner, barrier)
@@ -1313,16 +1608,17 @@ def main() -> None:
     t64, t256 = kern["timing"][SERVE_BATCH], kern["timing"][256]
     ts = stream["timing"]
     no_library = "none: no single PyTorch call computes K-step Lanczos"
+    by_path = {"serve": serve_launches, "qm8_train_packs": pack_launches,
+               "qm8_models_bf16_run": model_launches[QM8_BF16],
+               "qm8_models_ada_run": model_launches[QM8_ADA], **front_launches}
     print(json.dumps({"kernels": [{
         "name": "lanczos_tridiag",
         "route": "cuda",
         "source": "lanczosnet_torch/csrc/lanczos_tridiag.cu",
         "replaces": "lanczosnet_tpu/ops/lanczos_pallas.py:81",
-        "launches": serve_launches + pack_launches + model_launches[QM8_BF16]
-        + model_launches[QM8_ADA],
-        "launches_by_path": {"serve": serve_launches, "qm8_train_packs": pack_launches,
-                             "qm8_models_bf16_run": model_launches[QM8_BF16],
-                             "qm8_models_ada_run": model_launches[QM8_ADA]},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "custom_op": "lanczosnet::lanczos_tridiag_resid",
         "max_abs_err": kern["max_abs_err"],
         "ms": t64["kernel_ms"],
         "kernel_ms": t64["kernel_ms"],

@@ -5,11 +5,16 @@ its JAX counterpart. This package imports neither JAX nor anything of
 ``lanczosnet_tpu``. Its hand-written kernels live in ``csrc/`` and are
 built with ``nvcc`` on first use (``ops/_build.py``).
 
-Ported so far: the LanczosNet serving path (``serve.Predictor`` and
-``serve.MicroBatcher``) and full-graph citation training
-(``train.citation_runner.CitationRunner`` with AdaLanczosNet or
-LanczosNet, ``task: node``), with both Lanczos tridiagonalization
-kernels in CUDA (``csrc/lanczos_tridiag.cu`` for graphs of at most 128
-nodes, ``csrc/lanczos_stream.cu`` above) and the adjoint backward of the
-recursion around them. ``ROADMAP.md`` lists what is next.
+Ported so far: serving (``serve.Predictor`` and ``serve.MicroBatcher``
+in-process; ``serve_http.ModelServer`` behind a stdlib HTTP front or the
+native C++ front of ``serve_native``; ``torch.export`` artifacts in
+``export``; runs the JAX package trained, read from their flax msgpack
+checkpoints), the QM8 trainer for every single-device QM8 config
+(``cli``, ``train.runner.QM8Runner``) and full-graph citation training
+(``train.citation_runner.CitationRunner``), with both Lanczos
+tridiagonalization kernels in CUDA (``csrc/lanczos_tridiag.cu`` for
+graphs of at most 128 nodes, ``csrc/lanczos_stream.cu`` above) behind
+the custom operator ``lanczosnet::lanczos_tridiag_resid``, and the
+adjoint backward of the recursion around them. ``ROADMAP.md`` lists
+what is next.
 """

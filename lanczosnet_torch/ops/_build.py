@@ -58,10 +58,16 @@ def nvcc() -> str:
     )
 
 
+def library_path(src: Path, flags: tuple[str, ...], build_dir: Path) -> Path:
+    """Where the library of ``src`` built with ``flags`` goes: named by a
+    hash of both, so an edited source or flag is never served stale."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
+    return build_dir / f"{src.stem}-{digest[:16]}.so"
+
+
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return src, library_path(src, NVCC_FLAGS, BUILD_DIR)
 
 
 def build_all(names: list[str]) -> list[Built]:

@@ -14,10 +14,19 @@ kernel's plain version (``ops/lanczos.py``); on a CUDA tensor it
 launches the kernel or raises, unless the caller asks for the plain
 version by name (``impl="plain"``), as the comparisons on the card do.
 
+Past the kernels' limits (``kernel_limit``: N > 16384, or K > 64 at
+N > 128) the default ``impl="auto"`` runs the plain version on either
+device and counts the call in ``plain_routes``; ``impl="kernel"``
+raises there.
+
 ``LanczosTridiag`` is the ``torch.autograd.Function`` around either
 forward whose backward is the adjoint recursion
 (``ops/lanczos.py:lanczos_adjoint_bwd``) on the residuals the forward
-left; gradients never come from autograd through the plain loop.
+left; gradients never come from autograd through the plain loop. Where
+no gradient is asked the dispatch calls the custom operator
+``lanczosnet::lanczos_tridiag_resid`` (``lanczos_tridiag_resid_op``,
+registered when this module is imported), which ``torch.export``
+records as one node of an exported request program.
 """
 
 from __future__ import annotations
@@ -59,7 +68,8 @@ IMPLS = ("auto", "kernel", "plain")
 
 
 class LaunchCounter:
-    """Counts kernel launches, so a run can show it went through the kernel."""
+    """Counts kernel launches, so a run can show it went through the kernel
+    (or, as ``plain_routes``, the calls that went around it)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -84,6 +94,9 @@ class LaunchCounter:
 # (one, unless the batch does not fit one co-resident grid).
 launches = LaunchCounter()
 stream_launches = LaunchCounter()
+# calls under impl="auto" that the shape sent to a plain version, past
+# the kernels' limits (``kernel_limit``)
+plain_routes = LaunchCounter()
 
 
 def tridiag_padded_n(n: int) -> int:
@@ -247,9 +260,9 @@ def stream_plan(b: int, n: int, k: int, device: int) -> StreamPlan:
 
 
 def check_shapes(s: torch.Tensor, mask: torch.Tensor, k: int) -> None:
-    """Raise ``ValueError`` on shapes neither kernel takes: N ≤ 128 goes
-    to the shared-memory kernel (1 ≤ K ≤ N), 128 < N ≤ 16384 to the
-    streamed kernel (1 ≤ K ≤ 64)."""
+    """Raise ``ValueError`` on shapes no path takes: ``s`` ``[B,N,N]``
+    with B ≥ 1, ``mask`` ``[B,N]``, 1 ≤ K ≤ N. The kernels' own limits
+    are ``kernel_limit``'s."""
     if s.dim() != 3 or s.shape[1] != s.shape[2]:
         raise ValueError(f"s must be [B, N, N], got {tuple(s.shape)}")
     b, n, _ = s.shape
@@ -257,18 +270,22 @@ def check_shapes(s: torch.Tensor, mask: torch.Tensor, k: int) -> None:
         raise ValueError(f"mask must be [{b}, {n}], got {tuple(mask.shape)}")
     if b < 1:
         raise ValueError("empty batch")
-    if n > STREAM_N_MAX:
-        raise ValueError(
-            f"n={n} > {STREAM_N_MAX}: the streamed Lanczos kernel takes at most "
-            f"{STREAM_N_MAX} nodes (the shared-memory kernel {N_MAX})"
-        )
     if not 1 <= k <= n:
         raise ValueError(f"k={k} must be in [1, n={n}]")
+
+
+def kernel_limit(n: int, k: int) -> str | None:
+    """Why no kernel takes ``n`` nodes and ``k`` steps, or None where one
+    does: N ≤ 128 goes to the shared-memory kernel (any K ≤ N), 128 < N ≤
+    16384 to the streamed kernel (K ≤ 64). Read at call time, so a test
+    may lower the limits."""
+    if n > STREAM_N_MAX:
+        return (f"n={n} > {STREAM_N_MAX}: the streamed Lanczos kernel takes at most "
+                f"{STREAM_N_MAX} nodes (the shared-memory kernel {N_MAX})")
     if n > N_MAX and k > STREAM_K_MAX:
-        raise ValueError(
-            f"k={k} > {STREAM_K_MAX}: the streamed Lanczos kernel (n={n} > {N_MAX}) "
-            f"takes at most {STREAM_K_MAX} steps"
-        )
+        return (f"k={k} > {STREAM_K_MAX}: the streamed Lanczos kernel (n={n} > {N_MAX}) "
+                f"takes at most {STREAM_K_MAX} steps")
+    return None
 
 
 def launch(s: torch.Tensor, q0: torch.Tensor, outs: tuple[torch.Tensor, ...],
@@ -347,7 +364,13 @@ def lanczos_tridiag_cuda_resid(
     the streamed one (which takes qᵀS for S q and so needs S symmetric).
     ``impl="auto"`` launches it for a CUDA tensor and runs its plain
     version for a CPU tensor; ``"kernel"`` refuses a CPU tensor;
-    ``"plain"`` runs the plain version wherever the tensor lies."""
+    ``"plain"`` runs the plain version wherever the tensor lies.
+
+    Above the kernels' limits (``kernel_limit``) ``"auto"`` runs the
+    plain version on either device and counts it in ``plain_routes``,
+    as the JAX dispatch falls back to its scan; ``"kernel"`` raises,
+    naming the limit. The route is decided from the shape before any
+    launch; a failed build or launch always raises."""
     check_shapes(s, mask, k)
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} must be one of {IMPLS}")
@@ -355,9 +378,14 @@ def lanczos_tridiag_cuda_resid(
     stream = n > N_MAX
     if s.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no Lanczos kernel for device {s.device}")
+    limit = kernel_limit(n, k)
+    if impl == "kernel" and limit is not None:
+        raise ValueError(limit)
     if impl == "kernel" and s.device.type != "cuda":
         raise ValueError("impl='kernel' needs a CUDA tensor; the kernels run only on the card")
-    if impl == "plain" or s.device.type == "cpu":
+    if impl == "plain" or s.device.type == "cpu" or limit is not None:
+        if impl == "auto" and limit is not None:
+            plain_routes.add()
         plain = lanczos_tridiag_resid_stream if stream else lanczos_tridiag_resid
         return plain(s, mask, k, eps)
     s = s.to(torch.float32).contiguous()
@@ -374,6 +402,29 @@ def lanczos_tridiag_cuda_resid(
     )
     launch(s, q0.contiguous(), outs, k, eps)
     return outs
+
+
+Tensor6 = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.library.custom_op("lanczosnet::lanczos_tridiag_resid", mutates_args=())
+def lanczos_tridiag_resid_op(s: torch.Tensor, mask: torch.Tensor, k: int, eps: float,
+                             impl: str) -> Tensor6:
+    """``lanczos_tridiag_cuda_resid`` as the operator
+    ``torch.ops.lanczosnet.lanczos_tridiag_resid``, so ``torch.export``
+    records one call where it cannot trace a ``ctypes`` launch. Its body
+    is that function, run each time the exported program runs: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor, and the
+    same routing by shape. No autograd: ``LanczosTridiag`` serves
+    gradients."""
+    return lanczos_tridiag_cuda_resid(s, mask, k, eps, impl)
+
+
+@lanczos_tridiag_resid_op.register_fake
+def _lanczos_tridiag_resid_fake(s, mask, k, eps, impl):
+    b, n = s.shape[0], s.shape[1]
+    shapes = ((b, k), (b, k), (b, k, n), (b, k, k), (b, k, k), (b, k, n))
+    return tuple(s.new_empty(shape, dtype=torch.float32) for shape in shapes)
 
 
 class LanczosTridiag(torch.autograd.Function):
@@ -425,9 +476,11 @@ def batched_lanczos_ritz_dispatch(
     tensor goes to the kernel its shape picks, a CPU tensor to that
     kernel's plain version (``impl`` as in ``lanczos_tridiag_cuda_resid``).
     Where ``s`` requires a gradient the call goes through
-    ``LanczosTridiag``, so the backward is the adjoint recursion."""
+    ``LanczosTridiag``, so the backward is the adjoint recursion; where
+    none is asked (serving, packing, an exported program) through the
+    custom operator ``lanczos_tridiag_resid_op``."""
     if s.requires_grad and torch.is_grad_enabled():
         alphas, betas, q = LanczosTridiag.apply(s, mask, k, eps, impl)
     else:
-        alphas, betas, q, *_ = lanczos_tridiag_cuda_resid(s, mask, k, eps, impl)
+        alphas, betas, q, *_ = lanczos_tridiag_resid_op(s, mask, k, eps, impl)
     return ritz_from_tridiag(alphas, betas[:, : k - 1], q)

@@ -15,6 +15,10 @@ Counterpart of ``lanczosnet_tpu/serve.py``:
   that partitions a packed split (``data/partition.py:cluster_of_ops``),
   so a served GPNN sees the partition it was trained with; the compact
   wire carries none.
+- ``RequestProgram`` is that device program as one module: the
+  operator stack, the Ritz precompute and the model on the padded wire
+  tensors. ``Predictor`` runs it per request batch and ``export.py``
+  exports it, so one path serves both.
 - ``MicroBatcher`` coalesces single-graph requests from many client
   threads into one device program per batch, keeps per-request latency
   percentiles, and drains queued requests on ``close()``.
@@ -54,6 +58,39 @@ from lanczosnet_torch.utils.config import loads
 from lanczosnet_torch.utils.device import resolve_device
 
 
+class RequestProgram(torch.nn.Module):
+    """The device part of one request batch, as one module: the padded
+    wire tensors → standardized predictions ``[B, T]``.
+
+    ``adj`` ``[B,E,N,N]`` uint8 (the compact wire) or float32, ``atom``
+    ``[B,N]`` int32, ``node_feat`` ``[B,N,Fc]`` float32, and on the
+    float32 wire ``mask`` ``[B,N]`` float32 (the compact wire derives it
+    as ``atom > 0``) and, for GPNN, ``cluster`` ``[B,N]``, the partition
+    the host computed. Inside: the operator stack, for LanczosNet the
+    Ritz pairs (Lanczos through the custom operator, the K×K eigh, the
+    rotation), and the model. ``Predictor`` runs it per request batch;
+    ``export.py`` exports it with ``torch.export``."""
+
+    def __init__(self, model: torch.nn.Module, num_eig_vec: int = 0, operator_kind: str = "sym"):
+        super().__init__()
+        self.model = model
+        self.num_eig_vec = num_eig_vec
+        self.operator_kind = operator_kind
+
+    def graph_batch(self, adj, atom, node_feat, mask=None, cluster=None) -> GraphBatch:
+        """The wire tensors → a ``GraphBatch`` with its operator stack."""
+        mask = (atom > 0).float() if mask is None else mask
+        ops = build_operator_stack(adj.float(), mask, kind=self.operator_kind)
+        return GraphBatch(atom_type=atom, node_feat=node_feat, ops=ops, mask=mask, cluster=cluster)
+
+    def forward(self, adj, atom, node_feat, mask=None, cluster=None) -> torch.Tensor:
+        batch = self.graph_batch(adj, atom, node_feat, mask, cluster)
+        if self.num_eig_vec > 0:
+            batch.ritz_val, batch.ritz_vec = batched_lanczos_ritz_dispatch(
+                batch.ops[:, 0], batch.mask, self.num_eig_vec)
+        return self.model(batch)
+
+
 class Predictor:
     """Device-resident single-model prediction service."""
 
@@ -73,6 +110,7 @@ class Predictor:
         self.device = resolve_device(device)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
+        self.program = RequestProgram(self.model, num_eig_vec, operator_kind).eval()
         self.n_max = n_max
         self.batch_size = batch_size
         self.num_eig_vec = num_eig_vec
@@ -92,7 +130,10 @@ class Predictor:
         """Serve a training run: its ``config.yaml`` and the snapshot
         ``tag`` of its checkpoints, with the label width and the training
         split's stats from the snapshot's meta (falling back to ``best``,
-        then ``latest``, for tags written without them)."""
+        then ``latest``, for tags written without them). A run the JAX
+        package trained (``checkpoints/<tag>.msgpack``, no ``.pt``) is
+        read too: its flax parameters are mapped to the model's
+        ``state_dict`` (``weights.py``)."""
         run_dir = Path(run_dir)
         cfg = loads((run_dir / "config.yaml").read_text())
         dcfg, mcfg = cfg["dataset"], dict(cfg["model"])
@@ -106,7 +147,7 @@ class Predictor:
         mcfg["num_task"] = num_task
         return cls(
             build_model(mcfg),
-            ck.restore(tag)["model"],
+            ck.restore(tag, model_name=mcfg["name"])["model"],
             n_max=int(dcfg.get("n_max", 32)),
             batch_size=batch_size,
             num_eig_vec=int(mcfg.get("num_eig_vec", 20)) if mcfg["name"] == "LanczosNet" else 0,
@@ -174,22 +215,30 @@ class Predictor:
                 mask[i, :ni] = 1.0
         return adj, atom, feat, mask
 
-    def graph_batch(self, adj, atom, feat, mask) -> GraphBatch:
-        """Move a packed chunk to the device and build its operator stack
-        (and, for GPNN, the partition of its channel 0)."""
+    def device_args(self, adj, atom, feat, mask) -> tuple[torch.Tensor, ...]:
+        """A packed chunk on the device as ``RequestProgram``'s arguments:
+        (adj, atom, node_feat) on the compact wire; mask added on the
+        float32 wire, and for GPNN the partition of channel 0 of the
+        chunk's operators (built on the device, partitioned on the host
+        by ``data/partition.py:cluster_of_ops``, as the pack does)."""
         dev = self.device
-        atom_t = torch.from_numpy(atom).to(dev)
-        mask_t = (atom_t > 0).float() if mask is None else torch.from_numpy(mask).to(dev)
-        adj_t = torch.from_numpy(adj).to(dev).float()
-        ops = build_operator_stack(adj_t, mask_t, kind=self.operator_kind)
-        cluster = None
-        if self.num_cluster:
-            cluster = torch.from_numpy(
-                cluster_of_ops(ops.cpu().numpy(), mask, self.num_cluster)).to(dev)
-        return GraphBatch(
-            atom_type=atom_t, node_feat=torch.from_numpy(feat).to(dev), ops=ops, mask=mask_t,
-            cluster=cluster,
-        )
+        args = tuple(torch.from_numpy(a).to(dev) for a in (adj, atom, feat))
+        if mask is None:
+            return args
+        mask_t = torch.from_numpy(mask).to(dev)
+        if not self.num_cluster:
+            return (*args, mask_t)
+        ops = build_operator_stack(args[0].float(), mask_t, kind=self.operator_kind)
+        cluster = cluster_of_ops(ops.cpu().numpy(), mask, self.num_cluster)
+        return (*args, mask_t, torch.from_numpy(cluster).to(dev))
+
+    def graph_batch(self, adj, atom, feat, mask) -> GraphBatch:
+        """A packed chunk on the device as the model's ``GraphBatch``
+        (operators, and for GPNN the partition), without the Ritz pairs."""
+        return self.program.graph_batch(*self.device_args(adj, atom, feat, mask))
+
+    def _run(self, args: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        return self.program(*args)
 
     def _dispatch(self, chunk: Sequence[dict], compact: Optional[bool] = None):
         """Pack one ≤ batch_size chunk and launch its device program
@@ -197,11 +246,7 @@ class Predictor:
         :meth:`_finish`."""
         packed = self._pack(chunk, compact)
         with torch.inference_mode(), bf16_f32_accumulation():
-            batch = self.graph_batch(*packed)
-            if self.num_eig_vec > 0:
-                d, v = batched_lanczos_ritz_dispatch(batch.ops[:, 0], batch.mask, self.num_eig_vec)
-                batch.ritz_val, batch.ritz_vec = d, v
-            return self.model(batch), len(chunk)
+            return self._run(self.device_args(*packed)), len(chunk)
 
     def _finish(self, handle: torch.Tensor, real: int) -> np.ndarray:
         """Fetch a dispatched chunk's predictions (blocking) in original

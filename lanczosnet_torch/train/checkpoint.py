@@ -9,6 +9,13 @@ into place, so a reader never sees half a file.
 Layout inside the run directory:
     checkpoints/<tag>.pt           (tag: latest, best, …)
     checkpoints/<tag>.meta.json    ({epoch, val_acc, …})
+
+A run the JAX package trained holds ``checkpoints/<tag>.msgpack``
+instead (flax's msgpack of its ``TrainState``). ``restore`` reads it where
+no ``<tag>.pt`` exists, and ``restore_file`` reads such a file by name:
+given the model's name, its ``params`` become ``{"model": state_dict}``
+through ``weights.py``'s map for that model (``flax_msgpack.py`` decodes
+the file). Its optimizer state is not carried over.
 """
 
 from __future__ import annotations
@@ -19,6 +26,9 @@ from pathlib import Path
 from typing import Any, Optional
 
 import torch
+
+from lanczosnet_torch.train.flax_msgpack import msgpack_restore
+from lanczosnet_torch.weights import state_dict_from_flax
 
 
 class Checkpointer:
@@ -39,9 +49,15 @@ class Checkpointer:
             (self.dir / f"{tag}.meta.json").write_text(json.dumps(meta, indent=2))
         return path
 
-    def restore(self, tag: str, map_location: Any = "cpu") -> dict:
-        """The state saved under ``tag``, its tensors on ``map_location``."""
-        return self.restore_file(self._path(tag), map_location)
+    def restore(self, tag: str, map_location: Any = "cpu",
+                model_name: Optional[str] = None) -> dict:
+        """The state saved under ``tag``, its tensors on ``map_location``;
+        where only the JAX package's ``<tag>.msgpack`` exists, its model
+        parameters (``model_name`` names the map)."""
+        path = self._path(tag)
+        if not path.exists() and path.with_suffix(".msgpack").exists():
+            path = path.with_suffix(".msgpack")
+        return self.restore_file(path, map_location, model_name)
 
     def meta(self, tag: str) -> Optional[dict]:
         p = self.dir / f"{tag}.meta.json"
@@ -51,6 +67,16 @@ class Checkpointer:
         return self._path(tag).exists()
 
     @staticmethod
-    def restore_file(path: str | Path, map_location: Any = "cpu") -> dict:
-        """The state in an explicit checkpoint file (``test.test_model``)."""
-        return torch.load(Path(path), map_location=map_location, weights_only=True)
+    def restore_file(path: str | Path, map_location: Any = "cpu",
+                     model_name: Optional[str] = None) -> dict:
+        """The state in an explicit checkpoint file (``test.test_model``):
+        a ``.pt`` as saved, or a JAX ``.msgpack`` as ``{"model":
+        state_dict}`` of the model ``model_name``."""
+        path = Path(path)
+        if path.suffix != ".msgpack":
+            return torch.load(path, map_location=map_location, weights_only=True)
+        if model_name is None:
+            raise ValueError(f"{path} is a JAX checkpoint: its model's name is needed to map it")
+        params = msgpack_restore(path.read_bytes())["params"]
+        state = state_dict_from_flax(model_name, params)
+        return {"model": {k: v.to(map_location) for k, v in state.items()}}

@@ -13,6 +13,11 @@ graph stays on the device for the whole run.
 
 ``config`` is a plain mapping with the keys of ``configs/cora_*.yaml``:
 ``dataset``, ``model``, ``train``, ``test``, ``seed``, ``save_dir``.
+Options the port does not run yet (``train.num_devices`` > 1,
+``train.tp``, ``train.tensorboard``, ``train.profile``, …) raise,
+naming their ROADMAP item (``train/unported.py``, the table
+``QM8Runner`` checks too); ``train.prng_impl``, JAX's choice of random
+bit generator, is accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -28,12 +33,14 @@ from lanczosnet_torch.models import build_model
 from lanczosnet_torch.train.checkpoint import Checkpointer
 from lanczosnet_torch.train.node_step import make_node_eval_step, make_node_train_step
 from lanczosnet_torch.train.optim import build_optimizer
+from lanczosnet_torch.train.unported import refuse_unported
 from lanczosnet_torch.utils.device import resolve_device
 from lanczosnet_torch.utils.logger import MetricsLogger, get_logger
 
 
 class CitationRunner:
     def __init__(self, config: Mapping, device: str | torch.device | None = None):
+        refuse_unported(config)
         self.config = config
         self.device = resolve_device(device)
         self.log = get_logger()
@@ -122,7 +129,8 @@ class CitationRunner:
             best_epoch = int(best_meta.get("epoch", -1))
             self.log.info("resumed from epoch %d (best val so far %.4f)", start_epoch, best_val)
         elif tcfg.get("resume_model"):
-            self._load_state(Checkpointer.restore_file(tcfg["resume_model"], self.device))
+            self._load_state(Checkpointer.restore_file(tcfg["resume_model"], self.device,
+                                                      self.config["model"]["name"]))
             self.log.info("warm-started from %s", tcfg["resume_model"])
 
         t0 = time.perf_counter()
@@ -158,7 +166,7 @@ class CitationRunner:
     def test(self) -> dict:
         path = (self.config.get("test") or {}).get("test_model")
         if path:
-            state = Checkpointer.restore_file(path, self.device)
+            state = Checkpointer.restore_file(path, self.device, self.config["model"]["name"])
         elif self.ckpt.exists("best"):
             state = self.ckpt.restore("best", self.device)
         else:

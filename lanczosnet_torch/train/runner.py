@@ -56,22 +56,12 @@ from lanczosnet_torch.train.scan_epoch import (
     train_epoch,
 )
 from lanczosnet_torch.train.step import make_eval_step, make_train_step
+from lanczosnet_torch.train.unported import refuse_unported
 from lanczosnet_torch.utils.device import resolve_device
 from lanczosnet_torch.utils.logger import MetricsLogger, get_logger
 
 SPLITS = ("train", "val", "test")
 SCAN_BYTES_MAX = 2 * 1024**3
-
-# options of the JAX runner that the port refuses, with the ROADMAP
-# item that ports them: (section, key, refused when)
-_NOT_PORTED = (
-    ("dataset", "buckets", bool, "A12 (data/buckets.py)"),
-    ("train", "bucket_pair", bool, "A12 (data/buckets.py)"),
-    ("train", "tp", lambda v: int(v) > 1, "A11"),
-    ("train", "num_devices", lambda v: int(v) > 1, "A11"),
-    ("train", "profile", bool, "A12"),
-    ("train", "tensorboard", bool, "A12"),
-)
 
 
 def pack_cache_root() -> Path:
@@ -90,12 +80,7 @@ class QM8Runner:
     """Config-driven molecular regression on one device."""
 
     def __init__(self, config: Mapping, device: str | torch.device | None = None):
-        for section, key, refused, item in _NOT_PORTED:
-            value = (config.get(section) or {}).get(key)
-            if value is not None and refused(value):
-                raise NotImplementedError(
-                    f"{section}.{key}={value!r} is not ported yet (ROADMAP {item})"
-                )
+        refuse_unported(config)
         self.config = config
         self.device = resolve_device(device)
         self.log = get_logger()
@@ -288,7 +273,8 @@ class QM8Runner:
             best_val = float((self.ckpt.meta("best") or {}).get("val_mae", float("inf")))
             self.log.info("resumed from epoch %d (best val so far %.6f)", start_epoch, best_val)
         elif tcfg.get("resume_model"):
-            self._load_state(Checkpointer.restore_file(tcfg["resume_model"], self.device))
+            self._load_state(Checkpointer.restore_file(tcfg["resume_model"], self.device,
+                                                      self.config["model"]["name"]))
             self.log.info("warm-started from %s", tcfg["resume_model"])
         train_step = make_train_step(self.model, optimizer, scheduler, clip)
         return optimizer, scheduler, train_step, start_epoch, best_val
@@ -421,7 +407,7 @@ class QM8Runner:
         """Test a snapshot: ``test.test_model``, else this run's ``best``."""
         path = (self.config.get("test") or {}).get("test_model")
         if path:
-            state = Checkpointer.restore_file(path, self.device)
+            state = Checkpointer.restore_file(path, self.device, self.config["model"]["name"])
         elif self.ckpt.exists("best"):
             state = self.ckpt.restore("best", self.device)
         else:

@@ -36,6 +36,18 @@ _FLOAT = re.compile(r"[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?\Z")
 _KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_.-]*\Z")
 # a plain scalar that starts like a number, or names a YAML 1.1 value
 _NUMBER_LIKE = re.compile(r"[-+]?\.?[0-9]|[-+]?\.(?:inf|nan)\Z", re.IGNORECASE)
+# what PyYAML's implicit resolvers read as an int, a float or a date, and
+# a float without a point (a string to YAML 1.1, a number to YAML 1.2): a
+# number-like plain scalar that matches none of these is a string, as
+# ``yaml.safe_dump`` writes one (``run_id: 20261017_012345_42_train``)
+_TYPED = re.compile(
+    r"[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)|[-+]?0x[0-9a-fA-F_]+"
+    r"|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+"
+    r"|[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)"
+    r"|[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?(?:(?:[Tt]|[ \t]+)[0-9].*)?"
+    r"|[-+]?[0-9][0-9_]*(?:\.[0-9_]*)?[eE][-+]?[0-9]+\Z"
+)
 _RESERVED = {"yes", "no", "on", "off", "true", "false", "null", "~", "y", "n"}
 _INDICATORS = "-?:,[]{}#&*!|>'\"%@`"
 _SAFE_BARE = re.compile(r"[A-Za-z_/][A-Za-z0-9_./-]*\Z")
@@ -111,7 +123,7 @@ def _scalar(tok: str, lineno: int) -> Any:
     if (
         not tok
         or tok.lower() in _RESERVED
-        or _NUMBER_LIKE.match(tok)
+        or (_NUMBER_LIKE.match(tok) and (_TYPED.fullmatch(tok) or not tok[-1].isalpha()))
         or tok[0] in _INDICATORS
         or ": " in tok
         or tok.endswith(":")

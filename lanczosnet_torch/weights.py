@@ -200,3 +200,11 @@ STATE_DICT_MAPS = {
     "LanczosNet": lanczos_net_state_dict,
     "AdaLanczosNet": ada_lanczos_net_state_dict,
 }
+
+
+def state_dict_from_flax(model_name: str, params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``params`` of the flax model ``model_name`` (a ``model.name``
+    of the registry) → the port model's ``state_dict``."""
+    if model_name not in STATE_DICT_MAPS:
+        raise KeyError(f"no flax map for model {model_name!r}; known: {sorted(STATE_DICT_MAPS)}")
+    return STATE_DICT_MAPS[model_name](params)

@@ -124,8 +124,43 @@ def test_dispatch_picks_the_plain_version_by_shape(monkeypatch):
         lanczos_tridiag_cuda_resid(torch.zeros(1, 8, 8), torch.ones(1, 8), 2, impl="kernel")
     with pytest.raises(ValueError, match="impl"):
         lanczos_tridiag_cuda_resid(torch.zeros(1, 8, 8), torch.ones(1, 8), 2, impl="scan")
+    # past the kernels' limits "kernel" raises naming the limit, before any
+    # look at the device (a view: nothing of 16385² is allocated)
+    routes = lanczos_cuda.plain_routes.count
     with pytest.raises(ValueError, match="16384"):
-        lanczos_tridiag_cuda_resid(torch.zeros(1).expand(1, 16385, 16385), torch.ones(1, 16385), 2)
+        lanczos_tridiag_cuda_resid(torch.zeros(1).expand(1, 16385, 16385), torch.ones(1, 16385), 2,
+                                   impl="kernel")
+    assert lanczos_cuda.plain_routes.count == routes
+
+
+@pytest.mark.parametrize("n,k,limits", [
+    (300, 6, {"STREAM_N_MAX": 200}), (130, 6, {"STREAM_K_MAX": 4}),
+], ids=["n-past-the-streamed-kernel", "k-past-the-streamed-kernel"])
+def test_shape_routing_past_the_kernel_limits(monkeypatch, n, k, limits):
+    """With the kernels' limits lowered, a shape past them runs the
+    streamed plain version under "auto" (bit for bit) and counts it in
+    ``plain_routes``; "kernel" raises naming the limit; a shape within
+    them on the CPU is no plain route."""
+    monkeypatch.setattr(lanczos_cuda._build, "load", lambda name: pytest.fail(f"built {name}"))
+    for name, value in limits.items():
+        monkeypatch.setattr(lanczos_cuda, name, value)
+    s, mask = random_sym(np.random.default_rng(n), n, n - 20)
+    s, mask = torch.from_numpy(s)[None], torch.from_numpy(mask)[None]
+    lanczos_cuda.plain_routes.reset()
+    got = lanczos_tridiag_cuda_resid(s, mask, k)
+    want = lanczos_cuda.lanczos_tridiag_resid_stream(s, mask, k)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert lanczos_cuda.plain_routes.count == 1
+    vals, _ = lanczos_cuda.batched_lanczos_ritz_dispatch(s, mask, k)  # the custom operator
+    assert lanczos_cuda.plain_routes.count == 2 and vals.shape == (1, k)
+    with pytest.raises(ValueError, match=str(next(iter(limits.values())))):
+        lanczos_tridiag_cuda_resid(s, mask, k, impl="kernel")
+    small, small_mask = random_sym(np.random.default_rng(0), 12, 12)
+    lanczos_tridiag_cuda_resid(torch.from_numpy(small)[None], torch.from_numpy(small_mask)[None], 4)
+    lanczos_tridiag_cuda_resid(s, mask, k, impl="plain")
+    assert lanczos_cuda.plain_routes.count == 2
+    assert lanczos_cuda.stream_launches.count == 0
 
 
 @pytest.mark.parametrize("live", [12, 8, 4], ids=["full", "padded", "breakdown"])

@@ -288,6 +288,27 @@ def test_citation_runner_needs_a_card_unless_told(tmp_path, monkeypatch):
         CitationRunner({**cfg, "dataset": {**cfg["dataset"], "source": "planetoid"}}, device="cpu")
 
 
+@pytest.mark.parametrize(
+    "section,key,value,item",
+    [("dataset", "buckets", [8, 16], "A12"), ("train", "bucket_pair", True, "A12"),
+     ("train", "tp", 2, "A11"), ("train", "num_devices", 2, "A11"),
+     ("train", "profile", True, "A12"), ("train", "tensorboard", True, "A12")],
+)
+def test_refused_options_name_their_roadmap_item(tmp_path, section, key, value, item):
+    """The options the JAX citation runner honours and the port does not
+    run yet raise before anything is built, as in ``QM8Runner``."""
+    cfg = runner_config(tmp_path / "run")
+    cfg[section] = {**cfg.get(section, {}), key: value}
+    with pytest.raises(NotImplementedError, match=f"{section}.{key}.*{item}"):
+        CitationRunner(cfg, device="cpu")
+
+
+def test_jax_only_and_off_options_are_accepted(tmp_path):
+    cfg = runner_config(tmp_path / "run", max_epoch=1, prng_impl="threefry2x32", num_devices=1,
+                        tensorboard=False, profile=False, tp=1)
+    assert 0.0 <= CitationRunner(cfg, device="cpu").train()["test_acc"] <= 1.0
+
+
 def test_chip_smoke_literals_equal_the_cora_yaml():
     cfg = yaml.safe_load((REPO / "configs" / "cora_ada_lanczos_net.yaml").read_text())
     assert chip_smoke.CORA_ADA_MODEL == cfg["model"]

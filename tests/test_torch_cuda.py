@@ -21,7 +21,11 @@ gradients on the card (1e-4, float32, gradients relative to each
 parameter's largest entry); the bfloat16 flagship's card and CPU outputs
 differ by no more than bfloat16 differs from float32 on the card; QM8
 AdaLanczosNet's kernel and plain forwards agree in predictions and in
-the ``kernel_embed`` gradient (1e-4).
+the ``kernel_embed`` gradient (1e-4). Past a lowered kernel limit the
+wrapper runs the plain version on the card and counts the route; the
+custom operator equals the wrapper and launches the kernel; an artifact
+exported on the card launches it per request batch and answers as its
+Predictor does with TF32 on around the call (1e-5).
 """
 
 import copy
@@ -112,11 +116,75 @@ def test_dispatch_launches_the_kernel(card):
 
 
 def test_wrapper_refuses_large_graphs_on_the_card(card):
-    """Graphs past the streamed kernel's 16384 nodes are refused by
-    name; the check reads shapes only, so the tensor is a view."""
+    """Graphs past the streamed kernel's 16384 nodes are refused by name
+    under ``impl="kernel"``; the check reads shapes only, so the tensor is
+    a view."""
     big = torch.zeros(1, device=card).expand(1, 16385, 16385)
     with pytest.raises(ValueError, match="16384"):
-        lanczos_tridiag_cuda_resid(big, torch.ones(1, 16385, device=card), 20)
+        lanczos_tridiag_cuda_resid(big, torch.ones(1, 16385, device=card), 20, impl="kernel")
+
+
+def test_shape_routing_on_the_card(card, monkeypatch):
+    """With the streamed kernel's node limit lowered to 200, a graph of
+    300 nodes on the card runs the plain version under "auto" (its bits
+    exactly, no launch, one plain route) and "kernel" raises."""
+    monkeypatch.setattr(lanczos_cuda, "STREAM_N_MAX", 200)
+    s, mask = (t.to(card) for t in spd_case(15, 2, 300, [300, 250]))
+    launches, routes = lanczos_cuda.stream_launches.count, lanczos_cuda.plain_routes.count
+    got = lanczos_tridiag_cuda_resid(s, mask, 8)
+    torch.cuda.synchronize()
+    want = lanczos_tridiag_resid_stream(s, mask, 8)
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert lanczos_cuda.stream_launches.count == launches
+    assert lanczos_cuda.plain_routes.count == routes + 1
+    with pytest.raises(ValueError, match="200"):
+        lanczos_tridiag_cuda_resid(s, mask, 8, impl="kernel")
+
+
+def test_custom_op_on_the_card_equals_the_wrapper(card):
+    s, mask = (t.to(card) for t in spd_case(16, 8, 32, [32, 20, 9, 32, 1, 30, 31, 2]))
+    want = lanczos_tridiag_cuda_resid(s, mask, 12)
+    before = lanczos_cuda.launches.count
+    got = torch.ops.lanczosnet.lanczos_tridiag_resid(s, mask, 12, 1e-6, "auto")
+    torch.cuda.synchronize()
+    assert lanczos_cuda.launches.count == before + 1
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_artifact_exported_on_the_card_runs_the_kernel_under_tf32(card, tmp_path):
+    """A narrow LanczosNet exported on the card: the loaded artifact
+    launches the kernel per request batch and answers as the Predictor
+    (TF32 off) does, with TF32 switched on around the call (1e-5)."""
+    from lanczosnet_torch.export import export_predictor, load_predictor
+    from lanczosnet_torch.serve import Predictor
+
+    cfg = {"name": "LanczosNet", "num_atom": 8, "num_task": 16, "hidden_dim": [32, 32],
+           "embed_dim": 32, "short_diffusion_dist": [1, 2], "long_diffusion_dist": [3, 5],
+           "num_eig_vec": 8, "filter_hidden_dim": 8}
+    model = build_model(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    pred = Predictor(model, model.state_dict(), n_max=32, batch_size=16, num_eig_vec=8,
+                     device=card)
+    graphs = synthetic_qm8_graphs(40, seed=3)
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    try:
+        matmul.allow_tf32 = False
+        want = pred.predict(graphs)
+        loaded = load_predictor(export_predictor(pred, tmp_path / "artifact"), device=card)
+        matmul.allow_tf32 = True
+        before = lanczos_cuda.launches.count
+        got = loaded.predict(graphs)
+        assert matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = saved
+    assert lanczos_cuda.launches.count == before + 3
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 STREAM_CASES = {

@@ -13,6 +13,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "lanczosnet_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "lanczosnet_tpu")
+# modules the walk must find: the serving fronts, export and the reader of
+# JAX checkpoints among them
+EXPECTED = ("lanczosnet_torch.serve", "lanczosnet_torch.serve_http",
+            "lanczosnet_torch.serve_native", "lanczosnet_torch.export",
+            "lanczosnet_torch.train.flax_msgpack", "lanczosnet_torch.train.unported",
+            "lanczosnet_torch.train.checkpoint", "lanczosnet_torch.ops.lanczos_cuda")
 
 
 def port_sources() -> list[Path]:
@@ -28,8 +34,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 10 else 0)\n"
+        f"missing = sorted(set({EXPECTED!r}) - set(names))\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 10 else 0)\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120

@@ -148,8 +148,13 @@ def test_dispatch_sends_cpu_tensors_to_plain_version(monkeypatch):
     ],
 )
 def test_wrapper_rejects_shapes_the_kernel_does_not_take(s_shape, mask_shape, k, match):
+    """Shapes no path takes raise whatever ``impl`` asks; a shape past the
+    kernels' limits (K > 64 at N > 128) raises where the kernel is asked
+    for by name (under "auto" it routes to the plain version:
+    ``tests/test_torch_adjoint.py:test_shape_routing_past_the_kernel_limits``)."""
     with pytest.raises(ValueError, match=match):
-        lanczos_tridiag_cuda_resid(torch.zeros(s_shape), torch.zeros(mask_shape), k)
+        lanczos_tridiag_cuda_resid(torch.zeros(s_shape), torch.zeros(mask_shape), k,
+                                   impl="kernel")
 
 
 def test_qm8_breakdown_depends_on_summation_order():
