@@ -95,19 +95,47 @@ Phases, each printing one JSON line; any failure exits non-zero:
    below the first's, and eval-mode logits and the ``kernel_embed``
    gradient agree between the kernel forward and the plain forward
    (1e-4); step times and the stage split are printed.
-10. kernels: one line per ported kernel, its error, its time, its bound,
+10. dense_citation: the eight dense citation configs
+   (``configs/{cora,citeseer,pubmed}_gcn.yaml``,
+   ``{cora,citeseer,pubmed}_lanczos_net.yaml``, ``cora_ada_lanczos_net.yaml``,
+   ``pubmed_gpnn.yaml``) as written, cut to 12 epochs, through
+   ``python -m lanczosnet_torch.cli`` and ``-t``: every loss finite and
+   the last below the first, ``-t`` repeats the test accuracy; the packed
+   Ritz pairs of the LanczosNets that the streamed kernel packs (Cora,
+   Citeseer) equal the plain version's (0.0), Pubmed's (N=19717) take the
+   plain version by shape; GPNN's partition of Pubmed on the card agrees
+   with the CPU's, up to relabelling, on at least 97% of the nodes.
+11. sparse_citation: the twelve single-device ``SparseCitationRunner``
+   configs (``configs/pubmed_sparse_*.yaml``, ``million_sparse_gcn_wide``,
+   ``ten_million_sparse_gcn``, ``ten_million_sparse_lanczos_net``) at
+   full width, cut to 3 epochs, each graph made once for the configs
+   that share it: every loss finite and falling; each float32 Pubmed
+   model's eval logits on the card equal the CPU's on the same weights
+   (1e-4); the 10M operator's product equals a float64 scipy product
+   (1e-5), its Ritz values lie in [−1−1e-3, 1+1e-3] and its nonzero Ritz
+   vectors are orthonormal (1e-3), the bfloat16 LanczosNet's logits lie
+   within 2% of the largest logit of a float32 twin's on the same
+   weights, and ``remat: layers`` gives the loss of no remat on one step
+   (1e-5 relative). Per config: the graph, operator and Ritz (or
+   partition) times, ms a step, s an epoch, peak memory, the test
+   accuracy and a profile of a few steps.
+12. kernels: one line per ported kernel, its error, its time, its bound,
    its latency floor and its launches, all of this run (the
    shared-memory kernel's launches by path: serving, the flagship's
    packs, the bfloat16 flagship's run, QM8 AdaLanczosNet's run, the HTTP
    front, the native front and the served artifact; it runs behind the
-   custom operator ``lanczosnet::lanczos_tridiag_resid``).
+   custom operator ``lanczosnet::lanczos_tridiag_resid``; the streamed
+   kernel's by path: the Cora AdaLanczosNet run and the dense citation
+   configs).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
+import itertools
 import json
 import socket
 import subprocess
@@ -122,10 +150,12 @@ import torch
 from lanczosnet_torch import cli, serve_native
 from lanczosnet_torch.core.graph_batch import batch_graphs
 from lanczosnet_torch.data.dataset import RITZ_CHUNK, pack_dataset
+from lanczosnet_torch.data.partition import ritz_partition
 from lanczosnet_torch.data.loader import to_device
 from lanczosnet_torch.data.qm8 import NUM_ATOM, NUM_TASK, synthetic_qm8_graphs
 from lanczosnet_torch.export import export_predictor, load_predictor
 from lanczosnet_torch.models import build_model
+from lanczosnet_torch.models.sparse_nodes import build_sparse_model
 from lanczosnet_torch.ops.precision import bf16_f32_accumulation
 from lanczosnet_torch.ops import _build, lanczos_cuda
 from lanczosnet_torch.ops.lanczos import (
@@ -134,8 +164,13 @@ from lanczosnet_torch.ops.lanczos import (
     lanczos_tridiag_resid,
     lanczos_tridiag_resid_stream,
 )
-from lanczosnet_torch.ops.lanczos_cuda import LanczosTridiag, ritz_from_tridiag
+from lanczosnet_torch.ops.lanczos_cuda import (
+    LanczosTridiag,
+    batched_lanczos_ritz_dispatch,
+    ritz_from_tridiag,
+)
 from lanczosnet_torch.ops.normalize import build_operator_stack
+from lanczosnet_torch.ops.sparse import spmv
 from lanczosnet_torch.serve import MicroBatcher, Predictor
 from lanczosnet_torch.serve_http import ModelServer, make_http_server, serve_forever_in_thread
 from lanczosnet_torch.train.citation_runner import CitationRunner
@@ -146,7 +181,12 @@ from lanczosnet_torch.train.node_step import (
 )
 from lanczosnet_torch.train.checkpoint import Checkpointer
 from lanczosnet_torch.train.optim import build_optimizer
+from lanczosnet_torch.train import runner as runner_mod
 from lanczosnet_torch.train.runner import build_runner
+from lanczosnet_torch.train.sparse_citation_runner import (
+    SparseCitationRunner,
+    sparse_citation_graph,
+)
 from lanczosnet_torch.train.step import make_train_step, weighted_mae
 from lanczosnet_torch.utils import config as config_io
 
@@ -228,6 +268,10 @@ NUM_CLIENTS = 16
 FRONT_REQUESTS = 512  # per front, from FRONT_CLIENTS threads
 FRONT_CLIENTS = 16
 ARTIFACT_TOL = 1e-5  # the artifact against the Predictor it was exported from
+# bfloat16 logits of a sparse model against its float32 twin on the same
+# weights: max |bf16 − f32| over max |f32|; the CPU tests measure
+# 0.46–1.5% for the nine models (tests/test_torch_sparse_models.py)
+SPARSE_BF16_REL_DISTANCE = 0.02
 
 # H100 SXM data sheet (at the 700 W limit): HBM rate and float32 rate
 # outside the tensor cores
@@ -1588,6 +1632,279 @@ def phase_citation_train(runner: CitationRunner, smi: str) -> int:
     return launches
 
 
+DENSE_CITATION_CONFIGS = ("cora_gcn", "cora_lanczos_net", "cora_ada_lanczos_net", "citeseer_gcn",
+                          "citeseer_lanczos_net", "pubmed_gcn", "pubmed_lanczos_net", "pubmed_gpnn")
+SPARSE_CITATION_CONFIGS = tuple(f"pubmed_sparse_{m}" for m in (
+    "gcn", "chebynet", "gat", "dcnn", "graph_sage", "mpnn", "gpnn", "lanczos_net",
+    "ada_lanczos_net")) + ("million_sparse_gcn_wide", "ten_million_sparse_gcn",
+                           "ten_million_sparse_lanczos_net")
+# the depth cuts of the two citation phases (of max_epoch 20–400): the
+# dense configs' dropout-noisy CE needs about ten epochs to fall (on the
+# CPU cora_lanczos_net goes 1.946, 2.061, 1.952 in its first three)
+DENSE_CITATION_EPOCHS = CITATION_EPOCHS
+SPARSE_CITATION_EPOCHS = 3
+# the share of nodes on which GPNN's partition of the synthetic Pubmed
+# graph on the card and on the CPU must agree, up to relabelling: its
+# clusters are not separated, so nodes near a k-means boundary tip with
+# the order of summation (tests/test_torch_citation_import.py)
+PUBMED_PARTITION_AGREEMENT = 0.97
+SPMV_F64_TOL = 1e-5  # the 10M operator's float32 product against float64 scipy
+RITZ_ORTHO_TOL = 1e-3  # |VᵀV − I| of the 10M Ritz vectors, computed in float64
+REMAT_LOSS_RTOL = 1e-5  # remat: layers against no remat, one step, atomics' order aside
+
+
+@contextlib.contextmanager
+def kept_runners(name: str):
+    """Inside, every runner that ``build_runner`` makes under ``name`` (as
+    the CLI calls it) is appended to the yielded list."""
+    made, build = [], runner_mod.RUNNER_REGISTRY[name]
+
+    def keep(config, device=None):
+        made.append(build(config, device))
+        return made[-1]
+
+    runner_mod.RUNNER_REGISTRY[name] = keep
+    try:
+        yield made
+    finally:
+        runner_mod.RUNNER_REGISTRY[name] = build
+
+
+def citation_config_cut(name: str, epochs: int) -> tuple[dict, dict]:
+    """``configs/<name>.yaml`` cut to ``epochs``, every epoch logged →
+    (the config, the cuts as {key: [was, now]})."""
+    cfg = config_io.loads((QM8_CONFIG.parent / f"{name}.yaml").read_text())
+    cut = {"train.max_epoch": [cfg["train"]["max_epoch"], epochs],
+           "train.display_iter": [cfg["train"].get("display_iter"), 1]}
+    cfg["train"]["max_epoch"], cfg["train"]["display_iter"] = epochs, 1
+    return cfg, cut
+
+
+def partition_agreement(got: np.ndarray, want: np.ndarray) -> float:
+    """The share of nodes on which two partitions agree under the best
+    relabelling of ``got``."""
+    k = int(max(got.max(), want.max())) + 1
+    return max(float((np.asarray(perm)[got] == want).mean())
+               for perm in itertools.permutations(range(k)))
+
+
+def dense_citation_run(name: str, tmp: Path) -> dict:
+    """Train ``configs/<name>.yaml`` through the CLI, cut; test it with
+    ``-t``; hold the config's own check. → its JSON line's fields."""
+    cfg, cut = citation_config_cut(name, DENSE_CITATION_EPOCHS)
+    cfg["exp_dir"] = str(tmp / "exp")
+    tmp.mkdir(parents=True)
+    path = tmp / f"{name}.yaml"
+    path.write_text(config_io.dumps(cfg))
+    lanczos_cuda.stream_launches.reset()
+    lanczos_cuda.plain_routes.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with kept_runners("CitationRunner") as made:
+        rc = cli.main(["-c", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stream, routes = lanczos_cuda.stream_launches.count, lanczos_cuda.plain_routes.count
+    if rc != 0:
+        raise SmokeFailure(f"lanczosnet_torch.cli -c {path} exited {rc}")
+    run = only_run_dir(tmp / "exp", "_train")
+    recs = read_metrics(run)
+    losses = [r["loss"] for r in recs if r["event"] == "train"]
+    (trained,) = [r["acc"] for r in recs if r["event"] == "test"]
+    cfg["test"] = {"test_model": str(run / "checkpoints" / "best.pt")}
+    test_path = tmp / f"{name}_t.yaml"
+    test_path.write_text(config_io.dumps(cfg))
+    if cli.main(["-c", str(test_path), "-t"]) != 0:
+        raise SmokeFailure(f"lanczosnet_torch.cli -c {test_path} -t failed")
+    (tested,) = [r["acc"] for r in read_metrics(only_run_dir(tmp / "exp", "_test"))
+                 if r["event"] == "test"]
+    batch = made[0].batch
+    out = {"config": name, "cut": cut, "nodes": batch.n_max, "seconds": wall,
+           "train_ce": losses, "test_acc": trained, "retested_acc": tested,
+           "stream_launches": stream, "plain_routes": routes,
+           "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20}
+    if len(losses) != DENSE_CITATION_EPOCHS or not np.isfinite(losses).all():
+        raise SmokeFailure(f"{name}: losses are not {DENSE_CITATION_EPOCHS} finite numbers: {losses}")
+    if not losses[-1] < losses[0]:
+        raise SmokeFailure(f"{name}: train CE did not fall: {losses}")
+    if tested != trained:
+        raise SmokeFailure(f"{name}: -t gave test accuracy {tested}, the run {trained}")
+    if batch.ritz_val is not None:  # LanczosNet's packed Ritz pairs against the plain version's
+        k = batch.ritz_val.shape[-1]
+        vals, vecs = batched_lanczos_ritz_dispatch(batch.ops[:, 0], batch.mask, k, impl="plain")
+        out["ritz_max_abs_err_vs_plain"] = max(float((batch.ritz_val - vals).abs().max()),
+                                               float((batch.ritz_vec - vecs).abs().max()))
+        on_kernel = lanczos_cuda.kernel_limit(batch.n_max, k) is None
+        if on_kernel and (stream < 1 or out["ritz_max_abs_err_vs_plain"] != 0.0):
+            raise SmokeFailure(f"{name}: the packed Ritz pairs ({stream} streamed launches) "
+                               f"differ from the plain version's by "
+                               f"{out['ritz_max_abs_err_vs_plain']}")
+        if not on_kernel and routes < 1:
+            raise SmokeFailure(f"{name}: N={batch.n_max} went to no kernel and no plain route")
+    if batch.cluster is not None:  # GPNN's partition on the card against the CPU's
+        num = int(cfg["model"]["num_partition"])
+        cpu = ritz_partition(batch.ops[0, 0].cpu(), batch.mask[0].cpu(), num)
+        card = batch.cluster[0].cpu().numpy()
+        out["partition_agreement_card_vs_cpu"] = partition_agreement(card, cpu)
+        out["partition_nodes_differing"] = int(round(
+            (1.0 - out["partition_agreement_card_vs_cpu"]) * card.size))
+        if out["partition_agreement_card_vs_cpu"] < PUBMED_PARTITION_AGREEMENT:
+            raise SmokeFailure(f"{name}: the card's partition agrees with the CPU's on "
+                               f"{out['partition_agreement_card_vs_cpu']:.4f} of the nodes")
+    return out
+
+
+def phase_dense_citation(smi: str, tmp: Path) -> int:
+    """The eight dense citation configs through the CLI. → the streamed
+    kernel's launches in their runs."""
+    launches = 0
+    for name in DENSE_CITATION_CONFIGS:
+        out = dense_citation_run(name, tmp / name)
+        launches += out["stream_launches"]
+        emit("dense_citation", **out, nvidia_smi=smi)
+    return launches
+
+
+def sparse_citation_run(name: str, tmp: Path, graph: dict, graph_s: float, dev, smi: str):
+    """Train ``configs/<name>.yaml`` through ``SparseCitationRunner`` on a
+    graph made before, cut; test it; time a step and profile a few.
+    → (the runner, its JSON line's fields)."""
+    cfg, cut = citation_config_cut(name, SPARSE_CITATION_EPOCHS)
+    cfg["save_dir"] = str(tmp / name)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = SparseCitationRunner(cfg, dev, graph=graph)
+    trained = runner.train()
+    tested = runner.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recs = read_metrics(runner.run_dir)
+    losses = [r["loss"] for r in recs if r["event"] == "train"]
+    epoch_s = [r["seconds"] for r in recs if r["event"] == "epoch"]
+    peak_train_mb = torch.cuda.max_memory_allocated() / 2**20
+    optimizer, scheduler, clip = build_optimizer(runner.model.parameters(), cfg["train"])
+    step = runner.make_train_step(optimizer, scheduler, clip)
+    step_ms = host_ms(step, 5, 1)
+    trace = profile_train_steps(lambda _b, _m: step(), None, None, step_ms, steps=3)
+    out = {"config": name, "cut": cut, "nodes": runner.op.n, "edges": runner.op.num_edges,
+           "dtype": str(runner.model.dtype), "remat": runner.remat,
+           "graph_s": graph_s, "operator_s": runner.seconds["operator"],
+           "ritz_or_partition_s": runner.seconds["extras"], "seconds": wall,
+           "train_ce": losses, "epoch_s": epoch_s, "train_step_ms_median": step_ms,
+           "best_val_acc": trained["best_val_acc"], "test_acc": trained["test_acc"],
+           "peak_memory_mb_train": peak_train_mb,
+           "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20, "profiler": trace}
+    if len(losses) != SPARSE_CITATION_EPOCHS or not np.isfinite(losses).all():
+        raise SmokeFailure(f"{name}: losses are not {SPARSE_CITATION_EPOCHS} finite numbers: {losses}")
+    if not losses[-1] < losses[0]:
+        raise SmokeFailure(f"{name}: train CE did not fall: {losses}")
+    if tested["test_acc"] != trained["test_acc"]:
+        raise SmokeFailure(f"{name}: test() gave {tested['test_acc']}, train() {trained['test_acc']}")
+    return runner, out
+
+
+@torch.no_grad()
+def sparse_card_vs_cpu(runner) -> float:
+    """Max abs difference of the eval-mode logits on the card and on the
+    CPU, same weights, operator, features and extras."""
+    mcfg = runner.config["model"]
+    twin = build_sparse_model(mcfg, runner.x.shape[1], runner.model.head.out_features)
+    twin.load_state_dict({k: v.cpu() for k, v in runner.model.state_dict().items()})
+    twin.eval()
+    runner.model.eval()
+    card = runner.forward().float().cpu()
+    cpu = twin(runner.x.cpu(), runner.op.to("cpu"), *(e.cpu() for e in runner.extras)).float()
+    return float((card - cpu).abs().max())
+
+
+def ten_million_checks(runner) -> dict:
+    """The 10M LanczosNet's operator, Ritz pairs, bfloat16 and remat gates."""
+    import scipy.sparse
+
+    op, (vals, vecs) = runner.op, runner.extras
+    out = {}
+    gen = torch.Generator(device=op.val.device).manual_seed(0)
+    x = torch.randn(op.n, generator=gen, device=op.val.device)
+    with torch.no_grad():
+        y = spmv(op, x).double().cpu().numpy()
+    a = scipy.sparse.csr_matrix((op.val.cpu().double().numpy(),
+                                 (op.row.cpu().numpy(), op.col.cpu().numpy())), (op.n, op.n))
+    out["spmv_max_abs_err_vs_scipy_f64"] = float(np.abs(y - a @ x.double().cpu().numpy()).max())
+    out["ritz_val"] = vals.cpu().tolist()
+    live = vecs.norm(dim=0) > 0.5
+    v = vecs[:, live].double()
+    out["ritz_vectors_nonzero"] = int(live.sum())
+    out["ritz_ortho_max_err"] = float((v.T @ v - torch.eye(v.shape[1], dtype=v.dtype,
+                                                            device=v.device)).abs().max())
+    del v
+    with torch.no_grad():
+        runner.model.eval()
+        bf16 = runner.forward().float()
+        twin = build_sparse_model({**runner.config["model"], "dtype": None},
+                                  runner.x.shape[1], runner.model.head.out_features)
+        twin.load_state_dict(runner.model.state_dict())
+        f32 = twin.to(op.val.device).eval()(runner.x, op, vals, vecs)
+        out["bf16_vs_f32_rel_distance"] = float((bf16 - f32).abs().max() / f32.abs().max())
+        del bf16, f32, twin
+
+    def one_step(remat: bool) -> tuple[float, dict, float]:
+        runner.model.set_remat_layers(remat)
+        opt = torch.optim.SGD(runner.model.parameters(), lr=0.0)
+        torch.manual_seed(3)
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(runner.make_train_step(opt)())
+        grads = {k: p.grad.clone() for k, p in runner.model.named_parameters()}
+        return loss, grads, torch.cuda.max_memory_allocated() / 2**20
+
+    loss_r, grads_r, peak_r = one_step(True)
+    loss_n, grads_n, peak_n = one_step(False)
+    runner.model.set_remat_layers(True)
+    out.update(remat_layers_loss=loss_r, no_remat_loss=loss_n, remat_layers_step_peak_mb=peak_r,
+               no_remat_step_peak_mb=peak_n, remat_grad_max_rel_err=max(
+                   float((grads_r[k] - grads_n[k]).abs().max() / grads_n[k].abs().max().clamp_min(
+                       1e-30)) for k in grads_n))
+    fails = []
+    if not out["spmv_max_abs_err_vs_scipy_f64"] <= SPMV_F64_TOL:
+        fails.append(f"spmv differs from scipy by {out['spmv_max_abs_err_vs_scipy_f64']}")
+    if not (torch.isfinite(vals).all() and float(vals.abs().max()) <= 1.0 + 1e-3):
+        fails.append(f"Ritz values out of [-1-1e-3, 1+1e-3]: {out['ritz_val']}")
+    if not out["ritz_ortho_max_err"] <= RITZ_ORTHO_TOL:
+        fails.append(f"Ritz vectors orthonormal only to {out['ritz_ortho_max_err']}")
+    if not out["bf16_vs_f32_rel_distance"] <= SPARSE_BF16_REL_DISTANCE:
+        fails.append(f"bf16 logits {out['bf16_vs_f32_rel_distance']} from the f32 twin's")
+    if not abs(loss_r - loss_n) <= REMAT_LOSS_RTOL * abs(loss_n):
+        fails.append(f"remat: layers loss {loss_r} against {loss_n} without")
+    if fails:
+        raise SmokeFailure("ten_million_sparse_lanczos_net: " + "; ".join(fails))
+    return out
+
+
+def phase_sparse_citation(dev, smi: str, tmp: Path) -> None:
+    """The twelve single-device sparse configs through
+    ``SparseCitationRunner``, each graph made once for the configs that
+    share its ``dataset`` section."""
+    graphs = {}
+    for name in SPARSE_CITATION_CONFIGS:
+        dcfg = config_io.loads((QM8_CONFIG.parent / f"{name}.yaml").read_text())["dataset"]
+        key = json.dumps(dcfg, sort_keys=True)
+        if key not in graphs:
+            graphs.clear()  # one graph on the host at a time
+            t0 = time.perf_counter()
+            graphs[key] = (sparse_citation_graph(dcfg), time.perf_counter() - t0)
+        graph, graph_s = graphs[key]
+        runner, out = sparse_citation_run(name, tmp, graph, graph_s, dev, smi)
+        if runner.model.dtype == torch.float32 and name.startswith("pubmed"):
+            out["logits_max_abs_err_card_vs_cpu"] = sparse_card_vs_cpu(runner)
+            if not out["logits_max_abs_err_card_vs_cpu"] <= TOL:
+                raise SmokeFailure(f"{name}: card and CPU logits differ by "
+                                   f"{out['logits_max_abs_err_card_vs_cpu']} > {TOL}")
+        if name == "ten_million_sparse_lanczos_net":
+            out.update(ten_million_checks(runner))
+        emit("sparse_citation", **out, nvidia_smi=smi)
+        del runner
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1605,6 +1922,9 @@ def main() -> None:
         runner = CitationRunner(citation_config(run_dir), device=dev)
         stream = phase_stream_kernel(dev, runner, barrier)
         stream_launches = phase_citation_train(runner, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_citation_") as runs:
+        dense_launches = phase_dense_citation(smi, Path(runs) / "dense")
+        phase_sparse_citation(dev, smi, Path(runs) / "sparse")
     t64, t256 = kern["timing"][SERVE_BATCH], kern["timing"][256]
     ts = stream["timing"]
     no_library = "none: no single PyTorch call computes K-step Lanczos"
@@ -1636,7 +1956,8 @@ def main() -> None:
         "route": "cuda",
         "source": "lanczosnet_torch/csrc/lanczos_stream.cu",
         "replaces": "lanczosnet_tpu/ops/lanczos_pallas.py:184",
-        "launches": stream_launches,
+        "launches": stream_launches + dense_launches,
+        "launches_by_path": {"citation_train": stream_launches, "dense_citation": dense_launches},
         "max_abs_err": stream["max_abs_err"],
         "ms": ts["kernel_ms"],
         "kernel_ms": ts["kernel_ms"],

@@ -8,16 +8,24 @@ class-correlated sparse bag-of-words features at the real datasets'
 shapes from numpy's Philox generator, so one seed gives both packages
 the same arrays. ``pack_citation`` turns it into a B=1 ``GraphBatch``
 that every model takes with ``task: node``; the split masks ride beside
-the batch. The Planetoid file importer and the edge-list generator for
-large graphs are not ported yet.
+the batch. ``import_planetoid`` reads the classic ``ind.<name>.*`` files
+that a user supplies into the same dict. ``synthetic_citation_edges``
+draws a graph of millions of nodes as an edge list, in O(E) memory, for
+the sparse path (``train/sparse_citation_runner.py``); it draws the
+JAX generator's Philox stream in the same order, so one seed gives both
+packages the same graph element for element.
 """
 
 from __future__ import annotations
+
+import pickle
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from lanczosnet_torch.core.graph_batch import GraphBatch
+from lanczosnet_torch.data.partition import ritz_partition
 from lanczosnet_torch.ops.lanczos_cuda import batched_lanczos_ritz_dispatch
 from lanczosnet_torch.ops.normalize import build_operator_stack
 from lanczosnet_torch.utils.device import resolve_device
@@ -90,6 +98,135 @@ def synthetic_citation_graph(
     }
 
 
+def synthetic_citation_edges(
+    n: int,
+    num_class: int = 10,
+    feat_dim: int = 256,
+    avg_degree: float = 5.0,
+    homophily: float = 0.75,
+    seed: int = 0,
+    feat_density: float = 0.02,
+) -> dict:
+    """A stochastic-block-model-like graph of ``n`` nodes as an edge list
+    (the dense generator above holds an ``[N, N]`` matrix and stops
+    scaling near Pubmed's size): the dict of ``synthetic_citation_graph``
+    with ``edges [E, 2]`` int64 (i < j, unique) in place of ``adj``.
+
+    The draws are the JAX generator's, in its order; reordering or
+    fusing them would change the graph. At 10M nodes and F=32 the two
+    ``rng.random((n, feat_dim))`` draws are 2.56 GB of float64 each.
+    """
+    rng = np.random.Generator(np.random.Philox(seed))
+    labels = rng.integers(0, num_class, size=n).astype(np.int32)
+    by_class = [np.nonzero(labels == c)[0] for c in range(num_class)]
+
+    m = int(n * avg_degree / 2)
+    src = rng.integers(0, n, size=m)
+    same = rng.random(m) < homophily
+    dst = np.empty(m, np.int64)
+    for c in range(num_class):
+        pool = by_class[c]
+        sel = same & (labels[src] == c)
+        if sel.any() and len(pool):
+            dst[sel] = pool[rng.integers(0, len(pool), size=int(sel.sum()))]
+    rand_sel = ~same
+    dst[rand_sel] = rng.integers(0, n, size=int(rand_sel.sum()))
+    keep = src != dst
+    edges = np.unique(np.sort(np.stack([src[keep], dst[keep]], 1), axis=1), axis=0)
+
+    centroids = (rng.random((num_class, feat_dim)) < feat_density * 3).astype(np.float32)
+    features = centroids[labels] * (rng.random((n, feat_dim)) < 0.5) + (
+        rng.random((n, feat_dim)) < feat_density)
+    features = features.astype(np.float32)
+    features /= np.maximum(features.sum(1, keepdims=True), 1.0)
+
+    train_mask = np.zeros(n, bool)
+    for c in range(num_class):
+        pool = by_class[c]
+        if len(pool):
+            train_mask[rng.choice(pool, size=min(20, len(pool)), replace=False)] = True
+    rest = np.nonzero(~train_mask)[0]
+    rng.shuffle(rest)
+    # Planetoid-style 500/1000 validation/test, scaled down so that a
+    # small graph still has a test split
+    n_val = min(500, max(1, len(rest) // 2))
+    n_test = min(1000, len(rest) - n_val)
+    val_mask = np.zeros(n, bool)
+    test_mask = np.zeros(n, bool)
+    val_mask[rest[:n_val]] = True
+    test_mask[rest[n_val: n_val + n_test]] = True
+    return {
+        "features": features,
+        "labels": labels,
+        "edges": edges.astype(np.int64),
+        "train_mask": train_mask,
+        "val_mask": val_mask,
+        "test_mask": test_mask,
+        "num_class": num_class,
+    }
+
+
+def import_planetoid(data_dir: str | Path, name: str) -> dict:
+    """The Planetoid files ``ind.<name>.{x,y,tx,ty,allx,ally,graph,
+    test.index}`` in ``data_dir`` → the dict of
+    ``synthetic_citation_graph``.
+
+    Nodes ``[0, allx.rows)`` are ``allx``; the test nodes sit at the
+    indices of ``test.index``. Citeseer has isolated test nodes missing
+    from ``tx``: they get zero features and labels (and have no edges).
+    The training nodes are the first ``x.rows``, validation the next
+    500. The pickles are read as the format has them: only open files
+    from a source you trust.
+    """
+    data_dir = Path(data_dir)
+
+    def load(part):
+        with open(data_dir / f"ind.{name}.{part}", "rb") as fh:
+            return pickle.load(fh, encoding="latin1")
+
+    x, y, tx, ty, allx, ally, graph = (
+        load(p) for p in ("x", "y", "tx", "ty", "allx", "ally", "graph"))
+    test_idx = np.asarray(
+        [int(line) for line in (data_dir / f"ind.{name}.test.index").read_text().split()],
+        np.int64)
+
+    def dense(m):
+        return np.asarray(m.todense() if hasattr(m, "todense") else m, np.float32)
+
+    allx, tx, x = dense(allx), dense(tx), dense(x)
+    n = max(allx.shape[0] + tx.shape[0], int(test_idx.max()) + 1, len(graph))
+    features = np.zeros((n, allx.shape[1]), np.float32)
+    features[: allx.shape[0]] = allx
+    features[test_idx] = tx
+
+    labels_oh = np.zeros((n, ally.shape[1]), np.float32)
+    labels_oh[: ally.shape[0]] = ally
+    labels_oh[test_idx] = ty
+    labels = labels_oh.argmax(1).astype(np.int32)
+
+    adj = np.zeros((n, n), np.float32)
+    for i, nbrs in graph.items():
+        for j in nbrs:
+            if i != j and i < n and j < n:
+                adj[i, j] = adj[j, i] = 1.0
+
+    train_mask = np.zeros(n, bool)
+    train_mask[: x.shape[0]] = True
+    val_mask = np.zeros(n, bool)
+    val_mask[x.shape[0]: x.shape[0] + 500] = True
+    test_mask = np.zeros(n, bool)
+    test_mask[test_idx] = True
+    return {
+        "features": features,
+        "labels": labels,
+        "adj": adj,
+        "train_mask": train_mask,
+        "val_mask": val_mask,
+        "test_mask": test_mask,
+        "num_class": int(labels_oh.shape[1]),
+    }
+
+
 def pack_citation(
     graph: dict,
     pad_to: int = 8,
@@ -106,13 +243,10 @@ def pack_citation(
     and the embedding is a shared bias. With ``num_eig_vec > 0`` the
     Ritz pairs of the channel-0 operator are attached, computed on
     ``device`` through the Lanczos dispatch (on the card, the CUDA
-    kernel the graph's size picks).
+    kernel the graph's size picks). ``num_cluster > 0`` attaches GPNN's
+    partition (``cluster [1, N]``, ``data/partition.py:ritz_partition``,
+    its Lanczos call on ``device`` too).
     """
-    if num_cluster > 0:
-        raise NotImplementedError(
-            "num_cluster > 0 attaches a GPNN partition of the citation graph; its "
-            "partitioner (ritz_partition) is not ported yet (ROADMAP A9)"
-        )
     device = resolve_device(device)
     n = graph["features"].shape[0]
     n_pad = -(-n // pad_to) * pad_to
@@ -133,6 +267,9 @@ def pack_citation(
     if num_eig_vec > 0:
         with torch.no_grad():
             ritz_val, ritz_vec = batched_lanczos_ritz_dispatch(ops[:, 0], mask_t, num_eig_vec)
+    cluster = None
+    if num_cluster > 0:
+        cluster = torch.from_numpy(ritz_partition(ops[0, 0], mask_t[0], num_cluster)[None])
 
     batch = GraphBatch(
         atom_type=torch.from_numpy(atom).to(device),
@@ -143,6 +280,7 @@ def pack_citation(
         ritz_val=ritz_val,
         ritz_vec=ritz_vec,
         node_label=torch.from_numpy(node_label).to(device),
+        cluster=None if cluster is None else cluster.to(device),
     )
     splits = {}
     for split in ("train", "val", "test"):

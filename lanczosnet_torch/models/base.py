@@ -155,6 +155,22 @@ class NodeHead(nn.Module):
         return self.node_proj(out) * mask[..., None]
 
 
+class MLP(nn.Module):
+    """ReLU MLP ``in_dim → features[0] → … → features[-1]``, float32
+    (the flax ``MLP`` of the sparse models' spectral filters; its
+    ``dense_<i>`` are ``dense.<i>`` here)."""
+
+    def __init__(self, in_dim: int, features: Sequence[int]):
+        super().__init__()
+        dims = [in_dim, *features]
+        self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for lin in self.dense[:-1]:
+            x = torch.relu(lin(x))
+        return self.dense[-1](x)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` run at the activation dtype ``act_dtype``: the
     float32 weight and bias are cast to it per call, as flax's

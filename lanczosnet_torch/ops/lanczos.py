@@ -29,6 +29,10 @@ the node index in chunks: ``STREAM_CHUNK`` consecutive indices summed
 in index order from zero, then the chunk partials summed in chunk order
 from zero. Sums over the (at most 64) basis rows stay in index order.
 
+``lanczos_tridiag_matvec`` is the same recursion (plain torch ops,
+differentiable by autograd) for one operator given only as a matvec
+callback: the sparse full-graph path's Ritz pairs.
+
 ``lanczos_adjoint_bwd`` is the hand-derived reverse recursion that
 turns cotangents of (alphas, betas, q) into the cotangent of S from the
 residuals either forward leaves; ``LanczosTridiag`` in
@@ -72,12 +76,67 @@ def lanczos_start_vector(mask: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     This one is a masked sum of incommensurate sinusoids of the node
     index, the formula of the JAX package.
     """
+    v = _start_raw(mask)
+    norm = torch.sqrt(torch.clamp_min((v * v).sum(-1, keepdim=True), eps * eps))
+    return v / norm
+
+
+def _next_vector(w: torch.Tensor, ww: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The breakdown rule of every recursion here: from w and ``ww = w·w``,
+    β = sqrt(max(ww, ε²)) → (q_next, β), both 0 where β ≤ ε."""
+    beta = torch.sqrt(torch.clamp_min(ww, eps * eps))
+    valid = (beta > eps).to(w.dtype)
+    return valid * w / beta, beta * valid
+
+
+def _start_raw(mask: torch.Tensor) -> torch.Tensor:
+    """The start vector before normalization: the sinusoids of the node
+    index, masked."""
     n = mask.shape[-1]
     i = torch.arange(n, dtype=torch.float32, device=mask.device)
     v = 1.0 + torch.sin(1.9 * i + 0.7) + 0.5 * torch.cos(0.37 * i * i + 0.3)
-    v = v * mask
-    norm = torch.sqrt(torch.clamp_min((v * v).sum(-1, keepdim=True), eps * eps))
-    return v / norm
+    return v * mask
+
+
+def lanczos_tridiag_matvec(
+    matvec, mask: torch.Tensor, k: int, eps: float = 1e-6
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K-step Lanczos of one operator given as a callback ``matvec: [N]
+    → [N]`` (symmetric), so it never needs to exist as a matrix: the
+    sparse full-graph path runs it on its COO product.
+
+    mask ``[N]`` float32 → (alphas ``[k]``, betas ``[k-1]``, q ``[k,N]``),
+    the contract of the JAX package's ``lanczos_tridiag_matvec`` on one
+    device: its start vector, its carry quirk (the ``q_prev`` that enters
+    step j is q_j) and its breakdown rule (β ≤ ε zeroes the next vector
+    and its β). The CGS2 projections run against the rows written so
+    far; the JAX scan's later rows are zero and add nothing. Autograd
+    runs through it (no in-place writes), and every product is float32
+    whatever the TF32 flags say.
+    """
+    dtype = mask.dtype
+    q0 = _start_raw(mask).to(dtype)
+    q0 = q0 / torch.sqrt(torch.clamp_min((q0 * q0).sum(), eps * eps))
+    basis = [q0]
+    alphas, betas = [], []
+    beta_prev = mask.new_zeros(())
+    q_prev = torch.zeros_like(q0)
+    with f32_matmul():
+        for j in range(k):
+            q_j = basis[j]
+            w = matvec(q_j)
+            alpha = torch.dot(q_j, w)
+            w = w - alpha * q_j - beta_prev * q_prev
+            rows = torch.stack(basis)
+            for _ in range(2):
+                w = w - rows.T @ (rows @ w)
+            q_next, beta_prev = _next_vector(w, (w * w).sum(), eps)
+            if j + 1 < k:
+                basis.append(q_next)
+            alphas.append(alpha)
+            betas.append(beta_prev)
+            q_prev = q_next
+    return torch.stack(alphas), torch.stack(betas)[:-1], torch.stack(basis)
 
 
 def lanczos_tridiag_resid(
@@ -116,17 +175,15 @@ def lanczos_tridiag_resid(
         w = w - _combine_rows(q_buf, p1)
         p2 = _dot_rows(q_buf, w)
         w = w - _combine_rows(q_buf, p2)
-        beta = torch.sqrt(torch.clamp_min(_dot_rows(w[:, None, :], w), eps * eps))
-        valid = (beta > eps).to(torch.float32)
-        q_next = valid * w / beta
+        q_next, beta_prev = _next_vector(w, _dot_rows(w[:, None, :], w), eps)
         alphas[:, j] = alpha[:, 0]
-        betas[:, j] = (beta * valid)[:, 0]
+        betas[:, j] = beta_prev[:, 0]
         p1s[:, j] = p1
         p2s[:, j] = p2
         w4s[:, j] = w
         if j + 1 < k:
             q_buf[:, j + 1] = q_next
-        beta_prev, q_prev = beta * valid, q_next
+        q_prev = q_next
     return alphas, betas, q_buf, p1s, p2s, w4s
 
 
@@ -185,17 +242,15 @@ def lanczos_tridiag_resid_stream(
         w = w - _combine_rows(rows, p1)
         p2 = _chunk_sum(rows * w[:, None, :], 2)
         w = w - _combine_rows(rows, p2)
-        beta = torch.sqrt(torch.clamp_min(_chunk_sum(w * w, 1)[:, None], eps * eps))
-        valid = (beta > eps).to(torch.float32)
-        q_next = valid * w / beta
+        q_next, beta_prev = _next_vector(w, _chunk_sum(w * w, 1)[:, None], eps)
         alphas[:, j] = alpha[:, 0]
-        betas[:, j] = (beta * valid)[:, 0]
+        betas[:, j] = beta_prev[:, 0]
         p1s[:, j, : j + 1] = p1
         p2s[:, j, : j + 1] = p2
         w4s[:, j] = w
         if j + 1 < k:
             q_buf[:, j + 1] = q_next
-        beta_prev, q_prev = beta * valid, q_next
+        q_prev = q_next
     return alphas, betas, q_buf[:, :, :n].contiguous(), p1s, p2s, w4s[:, :, :n].contiguous()
 
 

@@ -28,7 +28,11 @@ from typing import Mapping
 
 import torch
 
-from lanczosnet_torch.data.citation import pack_citation, synthetic_citation_graph
+from lanczosnet_torch.data.citation import (
+    import_planetoid,
+    pack_citation,
+    synthetic_citation_graph,
+)
 from lanczosnet_torch.models import build_model
 from lanczosnet_torch.train.checkpoint import Checkpointer
 from lanczosnet_torch.train.node_step import make_node_eval_step, make_node_train_step
@@ -36,6 +40,22 @@ from lanczosnet_torch.train.optim import build_optimizer
 from lanczosnet_torch.train.unported import refuse_unported
 from lanczosnet_torch.utils.device import resolve_device
 from lanczosnet_torch.utils.logger import MetricsLogger, get_logger
+
+
+def citation_graph(dcfg: Mapping) -> dict:
+    """The graph of a ``dataset:`` section: ``source: planetoid`` reads
+    the files in ``data_dir``; ``synthetic`` (the default) draws the
+    stand-in of ``name`` at ``scale`` from ``seed`` (7)."""
+    source = dcfg.get("source", "synthetic")
+    if source == "planetoid":
+        return import_planetoid(dcfg["data_dir"], dcfg["name"])
+    if source != "synthetic":
+        raise ValueError(f"dataset.source={source!r}: expected synthetic or planetoid")
+    return synthetic_citation_graph(
+        dcfg.get("name", "cora"),
+        seed=int(dcfg.get("seed", 7)),
+        scale=float(dcfg.get("scale", 1.0)),
+    )
 
 
 class CitationRunner:
@@ -55,16 +75,7 @@ class CitationRunner:
         # computes its own inside the forward
         num_eig_vec = int(mcfg.get("num_eig_vec", 20)) if mcfg["name"] == "LanczosNet" else 0
 
-        source = dcfg.get("source", "synthetic")
-        if source != "synthetic":
-            raise NotImplementedError(
-                f"dataset.source={source!r}: the Planetoid importer is not ported yet (ROADMAP A9)"
-            )
-        graph = synthetic_citation_graph(
-            dcfg.get("name", "cora"),
-            seed=int(dcfg.get("seed", 7)),
-            scale=float(dcfg.get("scale", 1.0)),
-        )
+        graph = citation_graph(dcfg)
         self.batch, self.splits = pack_citation(
             graph,
             pad_to=1,

@@ -426,17 +426,19 @@ def _citation_runner(config, device=None):
     return CitationRunner(config, device)
 
 
-RUNNER_REGISTRY = {"QM8Runner": QM8Runner, "CitationRunner": _citation_runner}
-_RUNNERS_NOT_PORTED = {"SparseCitationRunner": "A10"}
+def _sparse_citation_runner(config, device=None):
+    from lanczosnet_torch.train.sparse_citation_runner import SparseCitationRunner
+
+    return SparseCitationRunner(config, device)
+
+
+RUNNER_REGISTRY = {"QM8Runner": QM8Runner, "CitationRunner": _citation_runner,
+                   "SparseCitationRunner": _sparse_citation_runner}
 
 
 def build_runner(config: Mapping, device: str | torch.device | None = None):
     """The runner that ``config['runner']`` names (QM8Runner by default)."""
     name = config.get("runner", "QM8Runner")
-    if name in _RUNNERS_NOT_PORTED:
-        raise NotImplementedError(
-            f"runner {name!r} is not ported yet (ROADMAP {_RUNNERS_NOT_PORTED[name]})"
-        )
     if name not in RUNNER_REGISTRY:
         raise KeyError(f"unknown runner {name!r}; available: {sorted(RUNNER_REGISTRY)}")
     return RUNNER_REGISTRY[name](config, device)

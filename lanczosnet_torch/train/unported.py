@@ -16,6 +16,7 @@ NOT_PORTED = (
     ("train", "bucket_pair", bool, "A12 (data/buckets.py)"),
     ("train", "tp", lambda v: int(v) > 1, "A11"),
     ("train", "num_devices", lambda v: int(v) > 1, "A11"),
+    ("train", "shard", bool, "A11"),
     ("train", "profile", bool, "A12"),
     ("train", "tensorboard", bool, "A12"),
 )

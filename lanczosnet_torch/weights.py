@@ -188,7 +188,38 @@ def gpnn_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
-#: the map of each model of the registry, by its ``model.name``
+def sparse_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``params`` of any of the nine flax models of
+    ``lanczosnet_tpu/models/sparse_nodes.py`` → the ``state_dict`` of the
+    port's model of that name (``models/sparse_nodes.py``). Each
+    top-level name has one rule; a name that fits none raises."""
+    leaves = _Leaves(params)
+    out = {}
+    for name in sorted(params):
+        kind, _, rest = name.partition("_")
+        if name in ("head", "kernel_embed", "in_proj"):
+            _linear(out, leaves, name, name)
+        elif kind == "layer":
+            _linear(out, leaves, f"layers.{rest}", name)
+        elif kind == "proj":  # GAT's projections have no bias
+            _linear(out, leaves, f"proj.{rest}", name, bias=False)
+        elif name.startswith(("att_src_", "att_dst_")):
+            out[f"{name[:7]}.{name[8:]}"] = leaves.take(name)
+        elif name in ("w_msg", "gru_w_in", "gru_w_st", "gru_b"):
+            out[name] = leaves.take(name)
+        elif kind in ("intra", "cut", "carry"):
+            _linear(out, leaves, f"dense.{name}", name)
+        elif kind == "filter":
+            for dense in sorted(params[name]):
+                _linear(out, leaves, f"filters.{name}.dense.{dense.split('_')[1]}", name, dense)
+        else:
+            raise KeyError(f"flax leaf {name} of a sparse model has no map")
+    leaves.check_all_used()
+    return out
+
+
+#: the map of each model of the registry, by its ``model.name``; the
+#: sparse models, under the names of their flax classes (``SparseGCN``, …)
 STATE_DICT_MAPS = {
     "GCN": gcn_state_dict,
     "GraphSAGE": gcn_state_dict,
@@ -199,6 +230,9 @@ STATE_DICT_MAPS = {
     "GPNN": gpnn_state_dict,
     "LanczosNet": lanczos_net_state_dict,
     "AdaLanczosNet": ada_lanczos_net_state_dict,
+    **{f"Sparse{name}": sparse_state_dict for name in (
+        "GCN", "ChebyNet", "GAT", "DCNN", "GraphSAGE", "MPNN", "GPNN", "LanczosNet",
+        "AdaLanczosNet")},
 }
 
 

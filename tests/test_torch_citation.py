@@ -94,8 +94,11 @@ def test_pack_citation_equals_jax(pad_to, kind):
             recon(got.ritz_val.numpy(), got.ritz_vec.numpy()),
             recon(np.asarray(want.ritz_val), np.asarray(want.ritz_vec)), atol=1e-3,
         )
-    with pytest.raises(NotImplementedError, match="A9"):
-        pack_citation(graph, num_cluster=4, device="cpu")
+    # GPNN's partition rides along (held to the JAX package in
+    # tests/test_torch_citation_import.py)
+    clustered, _ = pack_citation(graph, num_cluster=4, device="cpu")
+    assert clustered.cluster.shape == clustered.mask.shape
+    assert set(clustered.cluster.unique().tolist()) <= {0, 1, 2, 3}
 
 
 def test_masked_ce_loss_and_eval_step_match_jax():
@@ -283,9 +286,9 @@ def test_citation_runner_needs_a_card_unless_told(tmp_path, monkeypatch):
         CitationRunner(runner_config(tmp_path / "run"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pack_citation(synthetic_citation_graph("cora", seed=7, scale=0.1))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="synthetic or planetoid"):
         cfg = runner_config(tmp_path / "run")
-        CitationRunner({**cfg, "dataset": {**cfg["dataset"], "source": "planetoid"}}, device="cpu")
+        CitationRunner({**cfg, "dataset": {**cfg["dataset"], "source": "rdkit"}}, device="cpu")
 
 
 @pytest.mark.parametrize(

@@ -25,7 +25,11 @@ the ``kernel_embed`` gradient (1e-4). Past a lowered kernel limit the
 wrapper runs the plain version on the card and counts the route; the
 custom operator equals the wrapper and launches the kernel; an artifact
 exported on the card launches it per request batch and answers as its
-Predictor does with TF32 on around the call (1e-5).
+Predictor does with TF32 on around the call (1e-5). Each sparse model
+gives the CPU's eval logits and gradients on the card (1e-4); the 16-bit
+sparse scatters stay within a bfloat16 ulp of the CPU's; GPNN's dense
+partition launches the streamed kernel and equals the CPU's on separated
+clusters; ``remat: layers`` gives the loss of no remat (1e-5 relative).
 """
 
 import copy
@@ -468,3 +472,104 @@ def test_qm8_ada_kernel_and_plain_forwards_agree_on_the_card(card):
     torch.testing.assert_close(runs["kernel"][0], runs["plain"][0], rtol=0, atol=1e-4)
     torch.testing.assert_close(runs["kernel"][1] / scale, runs["plain"][1] / scale,
                                rtol=0, atol=1e-4)
+
+
+def sparse_runner_on(device, name: str, tmp_path, **model):
+    """A narrow sparse runner of ``name`` on a 2000-node edge-list graph."""
+    from lanczosnet_torch.train.sparse_citation_runner import SparseCitationRunner
+
+    cfg = {"seed": 3, "save_dir": str(tmp_path / f"{name}_{device}"),
+           "dataset": {"source": "synthetic_edges", "num_nodes": 2000, "num_class": 5,
+                       "feat_dim": 24, "avg_degree": 4.0},
+           "model": {"name": name, "hidden_dim": [32, 32], "num_eig_vec": 10,
+                     "short_diffusion_dist": [1, 2], "long_diffusion_dist": [3, 5], **model},
+           "train": {"lr": 1e-2, "max_epoch": 2}}
+    return SparseCitationRunner(cfg, device)
+
+
+@pytest.mark.parametrize("name", ["GCN", "ChebyNet", "GAT", "DCNN", "GraphSAGE", "MPNN",
+                                  "GPNN", "LanczosNet", "AdaLanczosNet"])
+def test_sparse_model_on_the_card_matches_the_cpu(card, tmp_path, name):
+    """Eval logits and one step's gradients of each sparse model, card
+    against CPU on the same weights, operator and extras (1e-4; the
+    gradients relative to each parameter's largest entry, but for one
+    whose true gradient is 0)."""
+    runner = sparse_runner_on(card, name, tmp_path)
+    cpu = sparse_runner_on("cpu", name, tmp_path)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in runner.model.state_dict().items()})
+    cpu.extras = tuple(e.cpu() for e in runner.extras)
+    got, want = {}, {}
+    for r, out in ((runner, got), (cpu, want)):
+        r.model.eval()
+        r.model.zero_grad(set_to_none=True)
+        logits = r.forward()
+        r.loss(logits).backward()
+        out["logits"] = logits.detach().float().cpu()
+        out.update({k: p.grad.cpu() for k, p in r.model.named_parameters()})
+    torch.testing.assert_close(got["logits"], want["logits"], rtol=0, atol=1e-4)
+    # the learned kernel reads only differences of embeddings, so the
+    # gradient of kernel_embed.bias is 0 but for rounding (3.6e-11 on the
+    # CPU): it is held to that, not to its own largest entry
+    bias = want.pop("kernel_embed.bias", None)
+    if bias is not None:
+        for g in (got.pop("kernel_embed.bias"), bias):
+            assert float(g.abs().max()) <= 1e-8
+    for key, g in want.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        torch.testing.assert_close(got[key] / scale, g / scale, rtol=0, atol=1e-4, msg=key)
+
+
+def test_sparse_ops_on_the_card_keep_16_bit_scatters_in_float32(card):
+    """``edge_gather``'s backward and ``spmv`` in bfloat16 on the card:
+    the same as on the CPU within one bfloat16 ulp, whatever the order of
+    the card's float32 atomics."""
+    from lanczosnet_torch.ops import sparse as tsp
+
+    rng = np.random.default_rng(0)
+    edges = np.unique(np.sort(rng.integers(0, 5000, (40000, 2)), 1), axis=0)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    op = tsp.sparse_sym_operator(edges, 5000)
+    x = torch.from_numpy(rng.standard_normal((5000, 16)).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.standard_normal((op.num_edges, 16)).astype(np.float32)).bfloat16()
+    grads = []
+    for dev in ("cpu", card):
+        xd = x.to(dev).detach().requires_grad_()
+        tsp.edge_gather(op.to(dev), xd).backward(g.to(dev))
+        grads.append((xd.grad.float().cpu(), tsp.spmv(op.to(dev), x.to(dev)).float().cpu()))
+    for want, got in zip(grads[0], grads[1]):
+        torch.testing.assert_close(got, want, rtol=2**-7, atol=1e-5)
+
+
+def test_ritz_partition_on_the_card_runs_the_streamed_kernel(card):
+    """A 300-node graph with separated clusters: the partition on the card
+    (its Lanczos call on the streamed kernel) equals the CPU's up to a
+    relabelling."""
+    from lanczosnet_torch.data.partition import ritz_partition
+    from lanczosnet_torch.ops.normalize import build_operator_stack
+
+    rng = np.random.default_rng(1)
+    n = 300
+    adj = np.zeros((1, 1, n, n), np.float32)
+    for c in range(3):
+        block = (rng.random((100, 100)) < 0.2).astype(np.float32)
+        adj[0, 0, c * 100:(c + 1) * 100, c * 100:(c + 1) * 100] = np.triu(block, 1)
+    adj[0, 0, 0, 100] = adj[0, 0, 100, 200] = 1.0
+    adj = np.maximum(adj, adj.transpose(0, 1, 3, 2))
+    op = build_operator_stack(torch.from_numpy(adj), torch.ones(1, n))[0, 0]
+    want = ritz_partition(op, torch.ones(n), 3)
+    before = lanczos_cuda.stream_launches.count
+    got = ritz_partition(op.to(card), torch.ones(n, device=card), 3)
+    assert lanczos_cuda.stream_launches.count == before + 1
+    pairs = set(zip(got.tolist(), want.tolist()))
+    assert len(pairs) == len(set(got.tolist())) == len(set(want.tolist()))
+
+
+def test_sparse_remat_layers_on_the_card_gives_the_loss_of_no_remat(card, tmp_path):
+    runner = sparse_runner_on(card, "LanczosNet", tmp_path, dtype="bfloat16")
+    losses = []
+    for remat in (True, False):
+        runner.model.set_remat_layers(remat)
+        torch.manual_seed(0)
+        losses.append(float(runner.make_train_step(torch.optim.SGD(
+            runner.model.parameters(), lr=0.0))()))
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
