@@ -111,7 +111,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    full width, cut to 3 epochs, each graph made once for the configs
    that share it: every loss finite and falling; each float32 Pubmed
    model's eval logits on the card equal the CPU's on the same weights
-   (1e-4); the 10M operator's product equals a float64 scipy product
+   (1e-4, or 10 times the distance of the CPU's own logits with the
+   edges summed in other orders, where that is larger); the 10M operator's product equals a float64 scipy product
    (1e-5), its Ritz values lie in [−1−1e-3, 1+1e-3] and its nonzero Ritz
    vectors are orthonormal (1e-3), the bfloat16 LanczosNet's logits lie
    within 2% of the largest logit of a float32 twin's on the same
@@ -119,7 +120,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (1e-5 relative). Per config: the graph, operator and Ritz (or
    partition) times, ms a step, s an epoch, peak memory, the test
    accuracy and a profile of a few steps.
-12. kernels: one line per ported kernel, its error, its time, its bound,
+12. sharded_citation: the four sharded sparse configs
+   (``configs/million_sparse_gcn_{sharded,node_sharded,ring}.yaml``,
+   ``ten_million_sparse_lanczos_net_ring.yaml``) as written, 8 ranks
+   sharing the card over gloo, cut to 3 epochs (the 10M one to 2), each
+   trained through ``python -m lanczosnet_torch.cli`` (which starts the
+   ranks), then ``-t`` on its best checkpoint in the ranks (and, for the
+   ring, one more epoch resumed from the primary's snapshot): every
+   rank on ``cuda`` (its ``setup`` event), the loss falls, ``-t`` repeats
+   the test accuracy, the resumed run logs the next epoch, the sharded
+   eval logits within 1e-4 of one device's at the same weights (the 10M
+   bfloat16 run within 2% of the largest logit), and each rank's peak in
+   the ring below its peak node-sharded. Per config: step ms, per-rank
+   peak GB and host peak RSS, rank 0's set-up seconds, the backend and
+   the comm layer's staging and transport shares of a step.
+13. kernels: one line per ported kernel, its error, its time, its bound,
    its latency floor and its launches, all of this run (the
    shared-memory kernel's launches by path: serving, the flagship's
    packs, the bfloat16 flagship's run, QM8 AdaLanczosNet's run, the HTTP
@@ -137,8 +152,12 @@ import contextlib
 import http.client
 import itertools
 import json
+import os
+import pickle
+import signal
 import socket
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -655,8 +674,11 @@ def qm8_stage_breakdown(model, optimizer, batch, valid, reps: int = 20) -> dict:
     return {name: float(np.median(v)) for name, v in times.items()}
 
 
-def read_metrics(run_dir: Path) -> list[dict]:
-    return [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+def read_metrics(run_dir: Path, rank: int = 0) -> list[dict]:
+    """The events of ``metrics.jsonl`` (rank r > 0 of a sharded run:
+    ``metrics.rank<r>.jsonl``)."""
+    name = "metrics.jsonl" if rank == 0 else f"metrics.rank{rank}.jsonl"
+    return [json.loads(ln) for ln in (run_dir / name).read_text().splitlines()]
 
 
 def only_run_dir(exp_dir: Path, suffix: str) -> Path:
@@ -1648,6 +1670,14 @@ SPARSE_CITATION_EPOCHS = 3
 # clusters are not separated, so nodes near a k-means boundary tip with
 # the order of summation (tests/test_torch_citation_import.py)
 PUBMED_PARTITION_AGREEMENT = 0.97
+# the card against the CPU, float32 Pubmed logits: within TOL, or within
+# this factor of the farthest of CARD_VS_CPU_CONTROLS reorderings of the
+# edges on the CPU from the CPU's own logits. About twice the largest
+# ratio of the two that scripts/torch_sparse_gate_readings.py read on an
+# H100 (4.8 of AdaLanczosNet, 6 seeds; the card's cuBLAS products and
+# atomics differ from the CPU in more places than a reordering does)
+CARD_VS_CPU_CONTROL_FACTOR = 10.0
+CARD_VS_CPU_CONTROLS = 3
 SPMV_F64_TOL = 1e-5  # the 10M operator's float32 product against float64 scipy
 RITZ_ORTHO_TOL = 1e-3  # |VᵀV − I| of the 10M Ritz vectors, computed in float64
 REMAT_LOSS_RTOL = 1e-5  # remat: layers against no remat, one step, atomics' order aside
@@ -1765,11 +1795,16 @@ def phase_dense_citation(smi: str, tmp: Path) -> int:
     return launches
 
 
-def sparse_citation_run(name: str, tmp: Path, graph: dict, graph_s: float, dev, smi: str):
+def sparse_citation_run(name: str, tmp: Path, graph: dict, graph_s: float, dev, smi: str,
+                        seed: int | None = None):
     """Train ``configs/<name>.yaml`` through ``SparseCitationRunner`` on a
-    graph made before, cut; test it; time a step and profile a few.
-    → (the runner, its JSON line's fields)."""
+    graph made before, cut (``seed``, where given, replaces the config's);
+    test it; time a step and profile a few. → (the runner, its JSON
+    line's fields)."""
     cfg, cut = citation_config_cut(name, SPARSE_CITATION_EPOCHS)
+    if seed is not None:
+        cut["seed"] = [cfg["seed"], seed]
+        cfg["seed"] = seed
     cfg["save_dir"] = str(tmp / name)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1804,17 +1839,33 @@ def sparse_citation_run(name: str, tmp: Path, graph: dict, graph_s: float, dev, 
 
 
 @torch.no_grad()
-def sparse_card_vs_cpu(runner) -> float:
-    """Max abs difference of the eval-mode logits on the card and on the
-    CPU, same weights, operator, features and extras."""
+def sparse_card_vs_cpu(runner) -> dict:
+    """The eval-mode logits on the card against the CPU's, same weights,
+    operator, features and extras, beside a control: the CPU's logits
+    with the operator's edges summed in other orders (two float32
+    computations that differ only in summation order, as the card's
+    atomics differ from the CPU). The gate's limit is ``TOL``, or
+    ``CARD_VS_CPU_CONTROL_FACTOR`` times the control where rounding alone
+    moves these logits further (a forward whose in-model Lanczos meets
+    close Ritz pairs at these weights)."""
     mcfg = runner.config["model"]
     twin = build_sparse_model(mcfg, runner.x.shape[1], runner.model.head.out_features)
     twin.load_state_dict({k: v.cpu() for k, v in runner.model.state_dict().items()})
     twin.eval()
     runner.model.eval()
     card = runner.forward().float().cpu()
-    cpu = twin(runner.x.cpu(), runner.op.to("cpu"), *(e.cpu() for e in runner.extras)).float()
-    return float((card - cpu).abs().max())
+    x, op, extras = runner.x.cpu(), runner.op.to("cpu"), [e.cpu() for e in runner.extras]
+    cpu = twin(x, op, *extras).float()
+    gen = torch.Generator().manual_seed(0)
+    control = 0.0
+    for _ in range(CARD_VS_CPU_CONTROLS):
+        p = torch.randperm(op.num_edges, generator=gen)
+        shuffled = op.replace(row=op.row[p], col=op.col[p], val=op.val[p], rows_sorted=False,
+                              col_perm=None)
+        control = max(control, float((twin(x, shuffled, *extras).float() - cpu).abs().max()))
+    err = float((card - cpu).abs().max())
+    return {"logits_max_abs_err_card_vs_cpu": err, "logits_max_abs_err_cpu_reordered": control,
+            "card_vs_cpu_limit": max(TOL, CARD_VS_CPU_CONTROL_FACTOR * control)}
 
 
 def ten_million_checks(runner) -> dict:
@@ -1850,7 +1901,7 @@ def ten_million_checks(runner) -> dict:
     def one_step(remat: bool) -> tuple[float, dict, float]:
         runner.model.set_remat_layers(remat)
         opt = torch.optim.SGD(runner.model.parameters(), lr=0.0)
-        torch.manual_seed(3)
+        runner.dropout_generator.manual_seed(3)
         torch.cuda.reset_peak_memory_stats()
         loss = float(runner.make_train_step(opt)())
         grads = {k: p.grad.clone() for k, p in runner.model.named_parameters()}
@@ -1879,10 +1930,10 @@ def ten_million_checks(runner) -> dict:
     return out
 
 
-def phase_sparse_citation(dev, smi: str, tmp: Path) -> None:
+def phase_sparse_citation(dev, smi: str, tmp: Path) -> dict:
     """The twelve single-device sparse configs through
     ``SparseCitationRunner``, each graph made once for the configs that
-    share its ``dataset`` section."""
+    share its ``dataset`` section. → {its dataset's key: the last graph}."""
     graphs = {}
     for name in SPARSE_CITATION_CONFIGS:
         dcfg = config_io.loads((QM8_CONFIG.parent / f"{name}.yaml").read_text())["dataset"]
@@ -1894,15 +1945,257 @@ def phase_sparse_citation(dev, smi: str, tmp: Path) -> None:
         graph, graph_s = graphs[key]
         runner, out = sparse_citation_run(name, tmp, graph, graph_s, dev, smi)
         if runner.model.dtype == torch.float32 and name.startswith("pubmed"):
-            out["logits_max_abs_err_card_vs_cpu"] = sparse_card_vs_cpu(runner)
-            if not out["logits_max_abs_err_card_vs_cpu"] <= TOL:
+            out.update(sparse_card_vs_cpu(runner))
+            if not out["logits_max_abs_err_card_vs_cpu"] <= out["card_vs_cpu_limit"]:
                 raise SmokeFailure(f"{name}: card and CPU logits differ by "
-                                   f"{out['logits_max_abs_err_card_vs_cpu']} > {TOL}")
+                                   f"{out['logits_max_abs_err_card_vs_cpu']} > "
+                                   f"{out['card_vs_cpu_limit']} (the CPU against itself "
+                                   f"reordered: {out['logits_max_abs_err_cpu_reordered']})")
         if name == "ten_million_sparse_lanczos_net":
             out.update(ten_million_checks(runner))
         emit("sparse_citation", **out, nvidia_smi=smi)
         del runner
         torch.cuda.empty_cache()
+    return {k: g for k, (g, _) in graphs.items()}
+
+
+# the 10M config first: it reuses the graph the single-device phase drew
+SHARDED_CITATION_CONFIGS = ("ten_million_sparse_lanczos_net_ring", "million_sparse_gcn_sharded",
+                            "million_sparse_gcn_node_sharded", "million_sparse_gcn_ring")
+# the depth cuts: 3 of max_epoch 60 (1M), 2 of 20 (10M: about 7 s a step
+# and a minute of set-up on rank 0 with 8 ranks on one H100)
+SHARDED_CITATION_EPOCHS = {"ten_million_sparse_lanczos_net_ring": 2}
+SHARDED_DEFAULT_EPOCHS = 3
+# resumed for one more epoch from the primary's snapshot: the ring (the
+# resume is the same code in every form; each costs a set-up)
+SHARDED_RESUMED = ("million_sparse_gcn_ring",)
+SHARDED_F32_TOL = 1e-4  # sharded float32 logits against one device's, same weights
+# the configs' own rank count (8) and graph size; a CPU rehearsal sets them
+SHARDED_RANKS = None
+SHARDED_NODES = None
+
+
+def sharded_config_cut(name: str, tmp: Path) -> tuple[dict, dict]:
+    """``configs/<name>.yaml`` cut for the phase → (config, cuts)."""
+    epochs = SHARDED_CITATION_EPOCHS.get(name, SHARDED_DEFAULT_EPOCHS)
+    cfg, cut = citation_config_cut(name, epochs)
+    cfg["exp_dir"] = str(tmp / "exp")
+    # a snapshot at the last epoch, for the resume
+    cut["train.snapshot_epoch"] = [cfg["train"].get("snapshot_epoch"), epochs]
+    cfg["train"]["snapshot_epoch"] = epochs
+    if SHARDED_RANKS is not None:
+        cut["train.num_devices"] = [cfg["train"]["num_devices"], SHARDED_RANKS]
+        cfg["train"]["num_devices"] = SHARDED_RANKS
+    if SHARDED_NODES is not None:
+        cut["dataset.num_nodes"] = [cfg["dataset"]["num_nodes"], SHARDED_NODES]
+        cfg["dataset"]["num_nodes"] = SHARDED_NODES
+    return cfg, cut
+
+
+def one_graph_cache(graphs: dict, dcfg: dict) -> dict:
+    """The graph of ``dcfg`` from ``graphs`` (made there if missing, after
+    dropping the one held: one graph on the host at a time)."""
+    key = json.dumps(dcfg, sort_keys=True)
+    if key not in graphs:
+        graphs.clear()
+        graphs[key] = sparse_citation_graph(dcfg)
+    return graphs[key]
+
+
+def sharded_followups(jobs: list, graph_file: str, device=None) -> int:
+    """What each rank does after the CLI trained sharded runs: per job
+    (``config``: a run's ``config.yaml``, ``out``: a directory, ``resume``)
+    ``-t`` on the run's best checkpoint through ``cli.run`` (rank 0 saves
+    the whole graph's eval logits and the weights), then, where asked,
+    one more epoch resumed from the primary's latest snapshot in the
+    run's own directory. The jobs share one graph: rank 0 loads it from
+    ``graph_file`` (pickled by the caller) instead of drawing it again."""
+    from lanczosnet_torch.parallel import multihost
+    from lanczosnet_torch.utils.config import AttrDict
+
+    rank = multihost.world().rank
+    graph = None
+    if rank == 0:
+        with open(graph_file, "rb") as f:
+            graph = pickle.load(f)
+
+    def with_graph(config, device=None):
+        return SparseCitationRunner(config, device, graph=graph)
+
+    runner_mod.RUNNER_REGISTRY["SparseCitationRunner"] = with_graph
+    worst = 0
+    for job in jobs:
+        base = AttrDict.convert(config_io.loads(Path(job["config"]).read_text()))
+        run = Path(base.save_dir)
+        tested = AttrDict.convert({**base, "save_dir": f"{run}_t", "is_test": True,
+                                   "test": {"test_model": str(run / "checkpoints" / "best.pt")}})
+        Path(tested.save_dir).mkdir(exist_ok=True)
+        codes = {}
+        with kept_runners("SparseCitationRunner") as made:
+            codes["test"] = cli.run(tested, True, "INFO", device)
+        if codes["test"] == 0:
+            logits = made[0].gathered_logits()
+            if rank == 0:  # the weights too: the resume below may write a new best
+                torch.save({"logits": logits.float().cpu(),
+                            "model": {k: v.cpu() for k, v in made[0].model.state_dict().items()}},
+                           Path(job["out"]) / "tested.pt")
+        del made
+        torch.cuda.empty_cache()
+        if job["resume"]:
+            resumed = AttrDict.convert({**base, "train": {**base.train, "is_resume": True,
+                                                          "max_epoch": base.train.max_epoch + 1}})
+            codes["resume"] = cli.run(resumed, False, "INFO", device)
+        (Path(job["out"]) / f"rank{rank}.json").write_text(json.dumps(codes))
+        worst = max(worst, *codes.values())
+    return worst
+
+
+@torch.no_grad()
+def sharded_vs_one_device(cfg: dict, run: Path, tested: dict, graph: dict, dev) -> dict:
+    """The weights the sharded ``-t`` ran with, on one device, on the same
+    graph: the distance of its eval logits from the sharded ones."""
+    one = {**cfg, "save_dir": f"{run}_one", "train": {**cfg["train"], "num_devices": 1}}
+    runner = SparseCitationRunner(one, dev, graph=graph)
+    runner.model.load_state_dict(tested["model"])
+    logits = tested["logits"]
+    want = runner.gathered_logits().float().cpu()
+    del runner
+    torch.cuda.empty_cache()
+    err = float((logits - want).abs().max())
+    return {"logits_max_abs_err_vs_one_device": err,
+            "logits_rel_distance_vs_one_device": err / float(want.abs().max())}
+
+
+def sharded_train(name: str, tmp: Path, device_arg) -> dict:
+    """Train ``configs/<name>.yaml`` (cut) on its ranks through ``python -m
+    lanczosnet_torch.cli`` → what the follow-ups and the checks need."""
+    cfg, cut = sharded_config_cut(name, tmp)
+    tmp.mkdir(parents=True)
+    path = tmp / f"{name}.yaml"
+    path.write_text(config_io.dumps(cfg))
+    t0 = time.perf_counter()
+    # a session of its own, so that a timeout ends the ranks the CLI started too
+    proc = subprocess.Popen([sys.executable, "-m", "lanczosnet_torch.cli", "-c", str(path),
+                             *(["--device", device_arg] if device_arg else [])],
+                            cwd=Path(__file__).resolve().parent, start_new_session=True)
+    try:
+        proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise SmokeFailure(f"python -m lanczosnet_torch.cli -c {path} ran past 900 s")
+    if proc.returncode != 0:
+        raise SmokeFailure(f"python -m lanczosnet_torch.cli -c {path} exited {proc.returncode}")
+    run = only_run_dir(tmp / "exp", "_train")
+    (tmp / "followups").mkdir()
+    return {"name": name, "cfg": cfg, "cut": cut, "run": run, "train_s": time.perf_counter() - t0,
+            "job": {"config": str(run / "config.yaml"), "out": str(tmp / "followups"),
+                    "resume": name in SHARDED_RESUMED}}
+
+
+def sharded_followups_launch(trained: list, graph: dict, tmp: Path, device_arg) -> float:
+    """The follow-ups of ``trained`` runs, which share ``graph``, in one
+    launch of their ranks → seconds (the graph's pickling included)."""
+    from lanczosnet_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    graph_file = tmp / "graph.pkl"
+    with open(graph_file, "wb") as f:
+        pickle.dump(graph, f, protocol=pickle.HIGHEST_PROTOCOL)
+    code = multihost.launch(int(trained[0]["cfg"]["train"]["num_devices"]),
+                            "chip_smoke:sharded_followups",
+                            [[t["job"] for t in trained], str(graph_file), device_arg],
+                            device=device_arg,
+                            store_dir=tmp, pythonpath=[Path(__file__).resolve().parent],
+                            timeout=900)
+    if code != 0:
+        raise SmokeFailure(f"{[t['name'] for t in trained]}: -t or resume in the ranks "
+                           f"exited {code}")
+    return time.perf_counter() - t0
+
+
+def sharded_checks(t: dict, followup_s: float, graphs: dict, dev, device_arg) -> dict:
+    """A trained and followed-up run's JSON line's fields; raises on a gate."""
+    name, cfg, run = t["name"], t["cfg"], t["run"]
+    ranks = int(cfg["train"]["num_devices"])
+    recs = [read_metrics(run, r) for r in range(ranks)]
+    setups = [next(e for e in rec if e["event"] == "setup") for rec in recs]
+    trained = [[e for e in rec if e["event"] == "test"][0] for rec in recs]
+    epochs = int(cfg["train"]["max_epoch"])
+    losses = [e["loss"] for e in recs[0] if e["event"] == "train"][:epochs]
+    steps = [e for e in recs[0] if e["event"] == "epoch"][:epochs]
+    step_s = sum(e["step_seconds"] for e in steps)
+    tested_state = torch.load(Path(t["job"]["out"]) / "tested.pt", weights_only=True)
+    (tested,) = [e["acc"] for e in read_metrics(Path(f"{run}_t")) if e["event"] == "test"]
+    out = {"config": name, "cut": t["cut"], "ranks": ranks, "shard": setups[0]["shard"],
+           "backend": setups[0]["backend"], "ranks_per_card": setups[0]["ranks_per_card"],
+           "rank_devices": [s["device"] for s in setups], "nodes": setups[0]["n_true"],
+           "edges": setups[0]["num_edges"], "dtype": str(cfg["model"].get("dtype", "float32")),
+           "setup_s_rank0": {k: v for k, v in setups[0].items() if k.endswith("_s")},
+           "train_wall_s": t["train_s"], "followups_wall_s": followup_s, "train_ce": losses,
+           "step_ms_median": 1e3 * float(np.median([e["step_seconds"] for e in steps])),
+           "step_ms": [1e3 * e["step_seconds"] for e in steps],
+           "comm_staging_share": sum(e["comm"]["staging_s"] for e in steps) / step_s,
+           "comm_transport_share": sum(e["comm"]["transport_s"] for e in steps) / step_s,
+           "comm_staged_mb_a_step": sum(e["comm"]["staged_bytes"] for e in steps)
+           / len(steps) / 2**20,
+           "peak_gb_per_rank": [e.get("peak_memory_mb", 0.0) / 1024 for e in trained],
+           "host_peak_rss_gb_per_rank": [e["host_peak_rss_mb"] / 1024 for e in trained],
+           "test_acc": trained[0]["acc"], "retested_acc": tested,
+           **sharded_vs_one_device(cfg, run, tested_state,
+                                   one_graph_cache(graphs, cfg["dataset"]), dev)}
+    fails = []
+    if device_arg is None and not all(d.startswith("cuda") for d in out["rank_devices"]):
+        fails.append(f"a rank ran off the card: {out['rank_devices']}")
+    if len(losses) != epochs or not np.isfinite(losses).all():
+        fails.append(f"losses are not {epochs} finite numbers: {losses}")
+    elif not losses[-1] < losses[0]:
+        fails.append(f"train CE did not fall: {losses}")
+    if tested != out["test_acc"]:
+        fails.append(f"-t gave test accuracy {tested}, the run {out['test_acc']}")
+    if t["job"]["resume"]:
+        resumed = [e["epoch"] for e in read_metrics(run) if e["event"] == "train"]
+        out["resumed_epochs"] = resumed[epochs:]
+        if out["resumed_epochs"] != [epochs]:
+            fails.append(f"the resumed run logged epochs {out['resumed_epochs']}")
+    if out["dtype"] == "bfloat16":
+        if not out["logits_rel_distance_vs_one_device"] <= SPARSE_BF16_REL_DISTANCE:
+            fails.append(f"logits {out['logits_rel_distance_vs_one_device']} of the largest "
+                         "from one device's")
+    elif not out["logits_max_abs_err_vs_one_device"] <= SHARDED_F32_TOL:
+        fails.append(f"logits {out['logits_max_abs_err_vs_one_device']} from one device's")
+    if fails:
+        raise SmokeFailure(f"{name}: " + "; ".join(fails))
+    return out
+
+
+def phase_sharded_citation(dev, smi: str, tmp: Path, graphs: dict | None = None,
+                           device_arg=None) -> None:
+    """The four sharded sparse configs, their ranks sharing the card, each
+    trained through the CLI; the follow-ups of the configs that share a
+    graph in one launch; the ring's per-rank peak below the node-sharded
+    one's. ``graphs``: a graph the caller drew (one at most), reused."""
+    graphs = {} if graphs is None else graphs
+    groups = {}
+    for name in SHARDED_CITATION_CONFIGS:
+        dcfg = sharded_config_cut(name, tmp)[0]["dataset"]
+        groups.setdefault(json.dumps(dcfg, sort_keys=True), []).append(name)
+    peaks = {}
+    for names in groups.values():
+        trained = [sharded_train(name, tmp / name, device_arg) for name in names]
+        graph = one_graph_cache(graphs, trained[0]["cfg"]["dataset"])
+        followup_s = sharded_followups_launch(trained, graph, tmp, device_arg)
+        del graph
+        for t in trained:
+            out = sharded_checks(t, followup_s, graphs, dev, device_arg)
+            peaks[t["name"]] = out["peak_gb_per_rank"]
+            emit("sharded_citation", **out, nvidia_smi=smi)
+    graphs.clear()
+    ring, node = peaks["million_sparse_gcn_ring"], peaks["million_sparse_gcn_node_sharded"]
+    emit("sharded_ring_memory", ring_peak_gb=ring, node_sharded_peak_gb=node, nvidia_smi=smi)
+    if device_arg is None and not all(r < n for r, n in zip(ring, node)):
+        raise SmokeFailure(f"a rank's peak in the ring {ring} is not below its peak "
+                           f"node-sharded {node}")
 
 
 def main() -> None:
@@ -1924,7 +2217,8 @@ def main() -> None:
         stream_launches = phase_citation_train(runner, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_citation_") as runs:
         dense_launches = phase_dense_citation(smi, Path(runs) / "dense")
-        phase_sparse_citation(dev, smi, Path(runs) / "sparse")
+        graphs = phase_sparse_citation(dev, smi, Path(runs) / "sparse")
+        phase_sharded_citation(dev, smi, Path(runs) / "sharded", graphs)
     t64, t256 = kern["timing"][SERVE_BATCH], kern["timing"][256]
     ts = stream["timing"]
     no_library = "none: no single PyTorch call computes K-step Lanczos"

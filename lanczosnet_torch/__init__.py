@@ -10,8 +10,11 @@ in-process; ``serve_http.ModelServer`` behind a stdlib HTTP front or the
 native C++ front of ``serve_native``; ``torch.export`` artifacts in
 ``export``; runs the JAX package trained, read from their flax msgpack
 checkpoints), the QM8 trainer for every single-device QM8 config
-(``cli``, ``train.runner.QM8Runner``) and full-graph citation training
-(``train.citation_runner.CitationRunner``), with both Lanczos
+(``cli``, ``train.runner.QM8Runner``), full-graph citation training
+(``train.citation_runner.CitationRunner``) and sparse full-graph
+training on one device or sharded over the ranks of a
+``torch.distributed`` group (``train.sparse_citation_runner``,
+``parallel``), with both Lanczos
 tridiagonalization kernels in CUDA (``csrc/lanczos_tridiag.cu`` for
 graphs of at most 128 nodes, ``csrc/lanczos_stream.cu`` above) behind
 the custom operator ``lanczosnet::lanczos_tridiag_resid``, and the

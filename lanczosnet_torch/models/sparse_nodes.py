@@ -20,6 +20,10 @@ node is real, so there is no mask. The nine families:
   by ``V f(D) Vᵀ h`` from precomputed Ritz pairs ``(ritz_val [K],
   ritz_vec [N, K])``.
 
+Each runs unchanged on a rank's piece of a sharded operator (edge,
+node or ring form, ``ops/sparse.py``): every reduction that crosses
+ranks is inside the sparse ops.
+
 The dtype contract of the JAX models: parameters, the kernel embedding,
 the Lanczos recursion and the spectral reconstruction are float32;
 ``dtype`` (bfloat16) carries only the E·F gathers and scatters and the
@@ -35,7 +39,7 @@ Parameter names follow the flax trees (``weights.py:sparse_state_dict``):
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +70,31 @@ from lanczosnet_torch.ops.sparse import (
 )
 
 
+def replaying(fn, generator: Optional[torch.Generator]):
+    """``fn`` made to draw the same dropout masks each time
+    ``torch.utils.checkpoint`` recomputes it: the state ``generator`` has
+    now is set again before every call after the first, and the state
+    it had put back after. (The checkpoint replays PyTorch's default
+    generators by itself, not one that a caller made.)"""
+    if generator is None:
+        return fn
+    state = generator.get_state()
+    calls = []
+
+    def run(*args):
+        if not calls:
+            calls.append(1)
+            return fn(*args)
+        now = generator.get_state()
+        generator.set_state(state)
+        try:
+            return fn(*args)
+        finally:
+            generator.set_state(now)
+
+    return run
+
+
 class SparseNodeModel(nn.Module):
     """What the nine share: the activation dtype, dropout, the head, the
     per-layer checkpointing and the initialization."""
@@ -88,9 +117,9 @@ class SparseNodeModel(nn.Module):
 
     def run_layer(self, fn, *args):
         """``fn(*args)``, recomputed in the backward under ``remat_layers``
-        (the dropout mask too: the checkpoint replays the RNG state)."""
+        (the dropout mask too: the recomputation replays the generator)."""
         if self.remat_layers and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
+            return checkpoint(replaying(fn, self.drop.generator), *args, use_reentrant=False)
         return fn(*args)
 
     def init_extra(self, generator: torch.Generator) -> None:
@@ -325,7 +354,7 @@ class _SpectralLayers(SparseNodeModel):
         for t in self.long:
             feat = torch.stack([ritz_val, ritz_val ** t], dim=-1)  # [K, 2]
             f = self.filters[f"filter_{li}_t{t}"](feat)[..., 0]  # [K]
-            vtx = spectral_project(ritz_vec, h)  # [K, F] float32
+            vtx = spectral_project(ritz_vec, h, op)  # [K, F] float32
             with f32_matmul():
                 recon = ritz_vec @ (f[:, None] * vtx)
             parts.append(recon.to(h.dtype))

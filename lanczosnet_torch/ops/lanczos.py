@@ -31,7 +31,9 @@ from zero. Sums over the (at most 64) basis rows stay in index order.
 
 ``lanczos_tridiag_matvec`` is the same recursion (plain torch ops,
 differentiable by autograd) for one operator given only as a matvec
-callback: the sparse full-graph path's Ritz pairs.
+callback: the sparse full-graph path's Ritz pairs, whole or with the
+node axis cut over the ranks of a group (every inner product then
+summed over them).
 
 ``lanczos_adjoint_bwd`` is the hand-derived reverse recursion that
 turns cotangents of (alphas, betas, q) into the cotangent of S from the
@@ -41,10 +43,13 @@ residuals either forward leaves; ``LanczosTridiag`` in
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from lanczosnet_torch.ops.precision import f32_matmul
+from lanczosnet_torch.parallel.comm import Comm, psum
 
 # Chunk length of the streamed kernel's order of summation; equal to
 # kChunk in csrc/lanczos_stream.cu, the same for every N.
@@ -89,34 +94,48 @@ def _next_vector(w: torch.Tensor, ww: torch.Tensor, eps: float) -> tuple[torch.T
     return valid * w / beta, beta * valid
 
 
-def _start_raw(mask: torch.Tensor) -> torch.Tensor:
+def _start_raw(mask: torch.Tensor, index_offset: int = 0) -> torch.Tensor:
     """The start vector before normalization: the sinusoids of the node
-    index, masked."""
+    index, masked. ``index_offset`` is the global id of row 0 (a node-
+    sharded rank's block start), so every rank evaluates its rows of the
+    one global vector."""
     n = mask.shape[-1]
-    i = torch.arange(n, dtype=torch.float32, device=mask.device)
+    i = torch.arange(n, dtype=torch.float32, device=mask.device) + float(index_offset)
     v = 1.0 + torch.sin(1.9 * i + 0.7) + 0.5 * torch.cos(0.37 * i * i + 0.3)
     return v * mask
 
 
 def lanczos_tridiag_matvec(
-    matvec, mask: torch.Tensor, k: int, eps: float = 1e-6
+    matvec, mask: torch.Tensor, k: int, eps: float = 1e-6,
+    axis: Optional[Comm] = None, index_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K-step Lanczos of one operator given as a callback ``matvec: [N]
     → [N]`` (symmetric), so it never needs to exist as a matrix: the
     sparse full-graph path runs it on its COO product.
 
     mask ``[N]`` float32 → (alphas ``[k]``, betas ``[k-1]``, q ``[k,N]``),
-    the contract of the JAX package's ``lanczos_tridiag_matvec`` on one
-    device: its start vector, its carry quirk (the ``q_prev`` that enters
-    step j is q_j) and its breakdown rule (β ≤ ε zeroes the next vector
-    and its β). The CGS2 projections run against the rows written so
-    far; the JAX scan's later rows are zero and add nothing. Autograd
-    runs through it (no in-place writes), and every product is float32
-    whatever the TF32 flags say.
+    the contract of the JAX package's ``lanczos_tridiag_matvec``: its
+    start vector, its carry quirk (the ``q_prev`` that enters step j is
+    q_j) and its breakdown rule (β ≤ ε zeroes the next vector and its
+    β). The CGS2 projections run against the rows written so far; the
+    JAX scan's later rows are zero and add nothing. Autograd runs through
+    it (no in-place writes), and every product is float32 whatever the
+    TF32 flags say.
+
+    ``axis``: the ``Comm`` over whose ranks the node axis is cut (mask,
+    q and the matvec's input and output are this rank's rows); every
+    node-axis inner product (α, β, the projections, the start vector's
+    norm) is then summed over the ranks, so each rank runs the global
+    recursion on its rows. ``index_offset``: the global id of this
+    rank's row 0.
     """
+
+    def total(x):
+        return x if axis is None else psum(x, axis)
+
     dtype = mask.dtype
-    q0 = _start_raw(mask).to(dtype)
-    q0 = q0 / torch.sqrt(torch.clamp_min((q0 * q0).sum(), eps * eps))
+    q0 = _start_raw(mask, index_offset).to(dtype)
+    q0 = q0 / torch.sqrt(torch.clamp_min(total((q0 * q0).sum()), eps * eps))
     basis = [q0]
     alphas, betas = [], []
     beta_prev = mask.new_zeros(())
@@ -125,12 +144,12 @@ def lanczos_tridiag_matvec(
         for j in range(k):
             q_j = basis[j]
             w = matvec(q_j)
-            alpha = torch.dot(q_j, w)
+            alpha = total(torch.dot(q_j, w))
             w = w - alpha * q_j - beta_prev * q_prev
             rows = torch.stack(basis)
             for _ in range(2):
-                w = w - rows.T @ (rows @ w)
-            q_next, beta_prev = _next_vector(w, (w * w).sum(), eps)
+                w = w - rows.T @ total(rows @ w)
+            q_next, beta_prev = _next_vector(w, total((w * w).sum()), eps)
             if j + 1 < k:
                 basis.append(q_next)
             alphas.append(alpha)

@@ -6,6 +6,11 @@ resume and for ``test()``. The state is a dictionary of ``state_dict``s
 and numbers written with ``torch.save`` to a temporary file and renamed
 into place, so a reader never sees half a file.
 
+In a sharded run only rank 0 writes (``writer``), as
+``lanczosnet_tpu/train/checkpoint.py`` has the primary process write;
+the other ranks read the same files, after a barrier where rank 0 may
+still be writing.
+
 Layout inside the run directory:
     checkpoints/<tag>.pt           (tag: latest, best, …)
     checkpoints/<tag>.meta.json    ({epoch, val_acc, …})
@@ -32,15 +37,23 @@ from lanczosnet_torch.weights import state_dict_from_flax
 
 
 class Checkpointer:
-    def __init__(self, run_dir: str | Path):
+    """``writer`` False (a rank other than 0 of a sharded run): ``save``
+    writes nothing, the directory is not made; reads are as on the
+    writer, after a barrier where the writer may be writing."""
+
+    def __init__(self, run_dir: str | Path, writer: bool = True):
         self.dir = Path(run_dir) / "checkpoints"
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
+        if writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
 
     def _path(self, tag: str) -> Path:
         return self.dir / f"{tag}.pt"
 
-    def save(self, tag: str, state: dict, meta: Optional[dict] = None) -> Path:
-        """Atomically write ``state`` under ``tag``."""
+    def save(self, tag: str, state: dict, meta: Optional[dict] = None) -> Optional[Path]:
+        """Atomically write ``state`` under ``tag`` (on the writer only)."""
+        if not self.writer:
+            return None
         path = self._path(tag)
         tmp = path.with_suffix(".tmp")
         torch.save(state, tmp)

@@ -60,7 +60,7 @@ def citation_graph(dcfg: Mapping) -> dict:
 
 class CitationRunner:
     def __init__(self, config: Mapping, device: str | torch.device | None = None):
-        refuse_unported(config)
+        refuse_unported(config, "CitationRunner")
         self.config = config
         self.device = resolve_device(device)
         self.log = get_logger()

@@ -80,7 +80,7 @@ class QM8Runner:
     """Config-driven molecular regression on one device."""
 
     def __init__(self, config: Mapping, device: str | torch.device | None = None):
-        refuse_unported(config)
+        refuse_unported(config, "QM8Runner")
         self.config = config
         self.device = resolve_device(device)
         self.log = get_logger()

@@ -1,33 +1,38 @@
 """Options of the JAX runners that the port does not run yet.
 
-Both runners check a config against one table before they build
+The three runners check a config against one table before they build
 anything, so an option the port would ignore raises instead, naming the
 ROADMAP item that ports it. ``train.prng_impl`` is accepted: it picks
-JAX's random-bit generator and has no torch counterpart.
+JAX's random-bit generator and has no torch counterpart. Sharding
+(``train.num_devices`` > 1, ``train.shard``) is ported for
+``SparseCitationRunner`` only (A11); the QM8 and dense citation runners'
+data and tensor parallelism is A11b.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
-# (section, key, refused when, the ROADMAP item that ports it)
+# (section, key, refused when, the ROADMAP item that ports it, runners that run it)
 NOT_PORTED = (
-    ("dataset", "buckets", bool, "A12 (data/buckets.py)"),
-    ("train", "bucket_pair", bool, "A12 (data/buckets.py)"),
-    ("train", "tp", lambda v: int(v) > 1, "A11"),
-    ("train", "num_devices", lambda v: int(v) > 1, "A11"),
-    ("train", "shard", bool, "A11"),
-    ("train", "profile", bool, "A12"),
-    ("train", "tensorboard", bool, "A12"),
+    ("dataset", "buckets", bool, "A12 (data/buckets.py)", ()),
+    ("train", "bucket_pair", bool, "A12 (data/buckets.py)", ()),
+    ("train", "tp", lambda v: int(v) > 1, "A11b", ()),
+    ("train", "num_devices", lambda v: int(v) > 1, "A11b", ("SparseCitationRunner",)),
+    ("train", "shard", bool, "A11b", ("SparseCitationRunner",)),
+    ("train", "profile", bool, "A12", ()),
+    ("train", "tensorboard", bool, "A12", ()),
 )
 
 
-def refuse_unported(config: Mapping) -> None:
+def refuse_unported(config: Mapping, runner: Optional[str] = None) -> None:
     """Raise ``NotImplementedError`` for the first option of ``config``
-    that ``NOT_PORTED`` refuses."""
-    for section, key, refused, item in NOT_PORTED:
+    that ``NOT_PORTED`` refuses for ``runner`` (the config's own
+    ``runner``, QM8Runner by default, where not named)."""
+    runner = runner or config.get("runner", "QM8Runner")
+    for section, key, refused, item, runs in NOT_PORTED:
         value = (config.get(section) or {}).get(key)
-        if value is not None and refused(value):
+        if value is not None and refused(value) and runner not in runs:
             raise NotImplementedError(
-                f"{section}.{key}={value!r} is not ported yet (ROADMAP {item})"
+                f"{section}.{key}={value!r} is not ported yet for {runner} (ROADMAP {item})"
             )

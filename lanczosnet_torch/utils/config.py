@@ -313,4 +313,6 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     p.add_argument(
         "-t", "--test", action="store_true", help="run evaluation instead of training"
     )
+    p.add_argument("--device", default=None,
+                   help="the device to run on (default: the card; 'cpu' where asked)")
     return p.parse_args(argv)

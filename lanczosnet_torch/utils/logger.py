@@ -19,17 +19,20 @@ from typing import Any, Optional
 LOGGER_NAME = "lanczosnet_torch"
 
 
-def setup_logging(log_file: Optional[str | Path] = None, level: str = "INFO") -> logging.Logger:
-    """Configure the package logger: stdout, and ``log_file`` if given."""
+def setup_logging(log_file: Optional[str | Path] = None, level: str = "INFO",
+                  stream: bool = True) -> logging.Logger:
+    """Configure the package logger: stdout (unless ``stream`` is False),
+    and ``log_file`` if given."""
     logger = logging.getLogger(LOGGER_NAME)
     logger.setLevel(getattr(logging, level.upper(), logging.INFO))
     for handler in list(logger.handlers):
         logger.removeHandler(handler)
         handler.close()
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(name)s | %(message)s", "%H:%M:%S")
-    sh = logging.StreamHandler(sys.stdout)
-    sh.setFormatter(fmt)
-    logger.addHandler(sh)
+    if stream:
+        sh = logging.StreamHandler(sys.stdout)
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
     if log_file is not None:
         fh = logging.FileHandler(log_file)
         fh.setFormatter(fmt)

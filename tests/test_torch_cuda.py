@@ -569,7 +569,61 @@ def test_sparse_remat_layers_on_the_card_gives_the_loss_of_no_remat(card, tmp_pa
     losses = []
     for remat in (True, False):
         runner.model.set_remat_layers(remat)
-        torch.manual_seed(0)
+        runner.dropout_generator.manual_seed(0)
         losses.append(float(runner.make_train_step(torch.optim.SGD(
             runner.model.parameters(), lr=0.0))()))
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+
+
+TESTS = str(Path(__file__).resolve().parent)
+
+
+def test_the_comm_layer_with_cuda_tensors_on_one_card(card, tmp_path):
+    """Two ranks on the one card: gloo (NCCL refuses two ranks on a
+    card); all_reduce and broadcast take the CUDA tensors as they are,
+    the other collectives are staged through the host; every result and
+    backward equals the single-process one exactly (integer-valued
+    inputs)."""
+    from lanczosnet_torch.parallel import multihost
+    import torch_rank_workers as workers
+
+    code = multihost.launch(2, "torch_rank_workers:comm_checks", [str(tmp_path), "cuda"],
+                            store_dir=tmp_path, threads=1, pythonpath=[TESTS], timeout=300)
+    assert code == 0
+    ranks = workers.read_ranks(tmp_path, 2)
+    d = 2
+    shared = torch.cuda.device_count() == 1  # else each rank has a card: NCCL, no staging
+    for r, res in enumerate(ranks):
+        assert res["world"]["device"].startswith("cuda")
+        assert res["world"]["backend"] == ("gloo" if shared else "nccl")
+        assert res["world"]["ranks_per_card"] == (2 if shared else 1)
+        assert res["staged"] == {"all_reduce": False, "broadcast": False, "all_gather": shared,
+                                 "reduce_scatter": shared, "ring_hop": shared}
+        assert (res["stats"]["staged_bytes"] > 0) == shared
+        y, g = res["psum"]
+        assert torch.equal(y, sum(workers.draw(1, s, (3, 4)) for s in range(d)))
+        assert torch.equal(g, sum(workers.draw(2, s, (3, 4)) for s in range(d)))
+        y, g = res["all_gather_rows"]
+        assert torch.equal(y, torch.cat([workers.draw(4, s, (2, 3)) for s in range(d)]))
+        assert torch.equal(g, sum(workers.draw(5, s, (2 * d, 3)) for s in range(d))[
+            2 * r: 2 * r + 2])
+        y, g = res["ring_hop"]
+        assert torch.equal(y, workers.draw(6, (r - 1) % d, (4, 2)))
+        assert torch.equal(g, workers.draw(7, (r + 1) % d, (4, 2)))
+
+
+def test_a_ring_step_holds_less_than_a_node_sharded_one(card, tmp_path):
+    """A GCN step on 400k nodes (F=64) over two ranks of the card: each
+    rank's peak device memory in the ring form is below its peak in the
+    node form, whose all-gather holds every rank's sources at once."""
+    from lanczosnet_torch.parallel import multihost
+    import torch_rank_workers as workers
+
+    code = multihost.launch(2, "torch_rank_workers:ring_memory", [str(tmp_path), 400_000],
+                            store_dir=tmp_path, threads=2, pythonpath=[TESTS], timeout=600)
+    assert code == 0
+    for res in workers.read_ranks(tmp_path, 2):
+        print(res)
+        assert res["nodes"]["device"].startswith("cuda")
+        assert np.isfinite(res["nodes"]["loss"]) and np.isfinite(res["nodes_ring"]["loss"])
+        assert res["nodes_ring"]["peak_mb"] < res["nodes"]["peak_mb"]

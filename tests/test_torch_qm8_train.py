@@ -434,7 +434,7 @@ def test_refused_options_name_their_roadmap_item(tmp_path, section, key, value, 
 
 def test_refused_runners_and_sources(tmp_path):
     cfg = tiny_config(tmp_path / "run")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(RuntimeError, match="not inside a process group"):
         build_runner({**cfg, "runner": "SparseCitationRunner",
                       "train": {**cfg["train"], "num_devices": 2}}, "cpu")
     with pytest.raises(KeyError, match="unknown runner"):
