@@ -134,14 +134,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the ring below its peak node-sharded. Per config: step ms, per-rank
    peak GB and host peak RSS, rank 0's set-up seconds, the backend and
    the comm layer's staging and transport shares of a step.
-13. kernels: one line per ported kernel, its error, its time, its bound,
+13. qm8_parallel: ``QM8Runner``'s data and tensor parallelism through
+   ``python -m lanczosnet_torch.cli``, the ranks sharing the card over
+   gloo: ``configs/qm8_lanczos_net_tp4.yaml`` as written (4 ranks, dp=1 ×
+   tp=4, cut to 3 epochs), then ``-t`` and one resumed epoch in its
+   ranks; the same config with ``train.num_devices: 8`` (dp=2 × tp=4, 2
+   epochs); ``configs/qm8_lanczos_net.yaml`` with ``train.num_devices: 4``
+   (dp=4, 2 epochs). The runs share a pack cache in a temporary
+   directory: the first run's rank 0 packs (B1 on the card), the others
+   read it. Gates: every rank on ``cuda``, the mesh the config asks for,
+   losses falling, each rank's parameter and Adam-moment bytes equal to
+   the rule's prediction (``parallel/tensor.py``), ``-t`` in the ranks,
+   the run's own test and ``-t`` on one device within 1e-6,
+   ``Predictor.from_run_dir`` on one device within 1e-4 of the restored
+   model; the flagship's first step at dp=2 × tp=4 within 1e-5 (relative)
+   of one device's loss on the same batch, weights and dropout masks; B1
+   0.0 from its plain version at the batch blocks B = 64/dp. Per run: step
+   ms, graphs/s, per-rank peak GB, the comm layer's share of a step,
+   rank 0's set-up seconds and B1's launches.
+14. kernels: one line per ported kernel, its error, its time, its bound,
    its latency floor and its launches, all of this run (the
    shared-memory kernel's launches by path: serving, the flagship's
    packs, the bfloat16 flagship's run, QM8 AdaLanczosNet's run, the HTTP
-   front, the native front and the served artifact; it runs behind the
-   custom operator ``lanczosnet::lanczos_tridiag_resid``; the streamed
-   kernel's by path: the Cora AdaLanczosNet run and the dense citation
-   configs).
+   front, the native front, the served artifact and the QM8 mesh runs'
+   packs; it runs behind the custom operator
+   ``lanczosnet::lanczos_tridiag_resid``; the streamed kernel's by path:
+   the Cora AdaLanczosNet run and the dense citation configs).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2066,6 +2084,23 @@ def sharded_vs_one_device(cfg: dict, run: Path, tested: dict, graph: dict, dev) 
             "logits_rel_distance_vs_one_device": err / float(want.abs().max())}
 
 
+def cli_process(path: Path, device_arg, timeout: float = 900) -> None:
+    """``python -m lanczosnet_torch.cli -c <path>`` in a process (which
+    starts the config's ranks); raises unless it exits 0 in time."""
+    # a session of its own, so that a timeout ends the ranks the CLI started too
+    proc = subprocess.Popen([sys.executable, "-m", "lanczosnet_torch.cli", "-c", str(path),
+                             *(["--device", device_arg] if device_arg else [])],
+                            cwd=Path(__file__).resolve().parent, start_new_session=True)
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise SmokeFailure(f"python -m lanczosnet_torch.cli -c {path} ran past {timeout} s")
+    if proc.returncode != 0:
+        raise SmokeFailure(f"python -m lanczosnet_torch.cli -c {path} exited {proc.returncode}")
+
+
 def sharded_train(name: str, tmp: Path, device_arg) -> dict:
     """Train ``configs/<name>.yaml`` (cut) on its ranks through ``python -m
     lanczosnet_torch.cli`` → what the follow-ups and the checks need."""
@@ -2074,18 +2109,7 @@ def sharded_train(name: str, tmp: Path, device_arg) -> dict:
     path = tmp / f"{name}.yaml"
     path.write_text(config_io.dumps(cfg))
     t0 = time.perf_counter()
-    # a session of its own, so that a timeout ends the ranks the CLI started too
-    proc = subprocess.Popen([sys.executable, "-m", "lanczosnet_torch.cli", "-c", str(path),
-                             *(["--device", device_arg] if device_arg else [])],
-                            cwd=Path(__file__).resolve().parent, start_new_session=True)
-    try:
-        proc.wait(timeout=900)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
-        raise SmokeFailure(f"python -m lanczosnet_torch.cli -c {path} ran past 900 s")
-    if proc.returncode != 0:
-        raise SmokeFailure(f"python -m lanczosnet_torch.cli -c {path} exited {proc.returncode}")
+    cli_process(path, device_arg)
     run = only_run_dir(tmp / "exp", "_train")
     (tmp / "followups").mkdir()
     return {"name": name, "cfg": cfg, "cut": cut, "run": run, "train_s": time.perf_counter() - t0,
@@ -2198,6 +2222,325 @@ def phase_sharded_citation(dev, smi: str, tmp: Path, graphs: dict | None = None,
                            f"node-sharded {node}")
 
 
+# the qm8_parallel phase: configs/qm8_lanczos_net_tp4.yaml as written
+# (dp=1 × tp=4), the same with train.num_devices 8 (dp=2 × tp=4) and
+# configs/qm8_lanczos_net.yaml with train.num_devices 4 (dp=4), their
+# ranks sharing the card over gloo; the depth cuts, of max_epoch 30
+QM8_TP4_CONFIG = QM8_CONFIG.parent / "qm8_lanczos_net_tp4.yaml"
+QM8_PARALLEL_RUNS = {  # name: (config, train.num_devices, epochs, (dp, tp))
+    "tp4": (QM8_TP4_CONFIG, None, 3, (1, 4)),
+    "dp2_tp4": (QM8_TP4_CONFIG, 8, 2, (2, 4)),
+    "dp4": (QM8_CONFIG, 4, 2, (4, 1)),
+}
+QM8_PARALLEL_FOLLOWED = "tp4"  # tested in its ranks and on one device, resumed one epoch
+QM8_FIRST_STEP_MESH = (2, 4)
+QM8_FIRST_STEP_RTOL = 1e-5  # the first step's loss against one device's
+QM8_RETEST_TOL = 1e-6  # -t in the ranks against -t on one device, test MAE
+
+
+def qm8_parallel_config(name: str, tmp: Path) -> tuple[Path, dict, dict]:
+    """A run of ``QM8_PARALLEL_RUNS``, its config cut and written to
+    ``tmp`` → (path, config, cuts)."""
+    src, ndev, epochs, _ = QM8_PARALLEL_RUNS[name]
+    cfg = config_io.loads(src.read_text())
+    tcfg = cfg["train"]
+    cut = {"train.max_epoch": [tcfg["max_epoch"], epochs],
+           "exp_dir": [cfg.get("exp_dir"), str(tmp / "exp")]}
+    tcfg["max_epoch"], cfg["exp_dir"] = epochs, str(tmp / "exp")
+    if ndev is not None:
+        cut["train.num_devices"] = [tcfg.get("num_devices"), ndev]
+        tcfg["num_devices"] = ndev
+    tmp.mkdir(parents=True)
+    path = tmp / f"{name}.yaml"
+    path.write_text(config_io.dumps(cfg))
+    return path, cfg, cut
+
+
+def qm8_parallel_followups(config: str, device=None) -> int:
+    """What each rank of a trained QM8 mesh run does after it: ``-t`` on
+    its best checkpoint through ``cli.run`` (in ``<run>_t``), then one
+    more epoch resumed from the primary's latest snapshot."""
+    from lanczosnet_torch.utils.config import AttrDict
+
+    base = AttrDict.convert(config_io.loads(Path(config).read_text()))
+    run = Path(base.save_dir)
+    tested = AttrDict.convert({**base, "save_dir": f"{run}_t", "is_test": True,
+                               "test": {"test_model": str(run / "checkpoints" / "best.pt")}})
+    Path(tested.save_dir).mkdir(exist_ok=True)
+    codes = [cli.run(tested, True, "INFO", device)]
+    resumed = AttrDict.convert({**base, "train": {**base.train, "is_resume": True,
+                                                  "max_epoch": base.train.max_epoch + 1}})
+    codes.append(cli.run(resumed, False, "INFO", device))
+    return max(codes)
+
+
+def qm8_first_step_case(spec: dict, dev, layout=None) -> dict:
+    """One training step of the spec's model (``model``, ``weights``,
+    ``batch`` arrays, ``train``, dropout ``seed``) on ``dev``: on one
+    device, or on this rank's block of the batch and of the model of a
+    ``(dp, tp)`` layout → the loss and the state bytes."""
+    from lanczosnet_torch.core.graph_batch import GraphBatch
+    from lanczosnet_torch.models.base import set_dropout_generator
+    from lanczosnet_torch.parallel import mesh
+    from lanczosnet_torch.parallel.tensor import TensorParallel, measured_state_bytes
+
+    model = build_model(spec["model"])
+    model.load_state_dict(spec["weights"])
+    model.to(dev)
+    d, dp = (0, 1) if layout is None else (layout.d, layout.dp)
+    parallel = None if layout is None else TensorParallel(model, layout.tp_comm)
+    params = list(model.parameters()) if parallel is None else parallel.parameters()
+    set_dropout_generator(model, torch.Generator(dev).manual_seed(spec["seed"]), rows=(d, dp))
+    optimizer, scheduler, clip = build_optimizer(params, spec["train"], 1)
+    step = make_train_step(model, optimizer, scheduler, clip,
+                           None if layout is None else layout.dp_comm, parallel)
+    bs = spec["batch"]["mask"].shape[0]
+    rows = mesh.batch_rows(bs, dp, d)
+    batch = GraphBatch(**{k: None if v is None else torch.from_numpy(v[rows]).to(dev)
+                          for k, v in spec["batch"].items()})
+    loss = float(step(batch, torch.ones(rows.stop - rows.start, device=dev), bs))
+    return {"loss": loss, "state_bytes": measured_state_bytes(params, optimizer)}
+
+
+def qm8_first_step(spec_file: str, out_dir: str, device=None) -> int:
+    """``qm8_first_step_case`` on this rank of a ``QM8_FIRST_STEP_MESH``
+    layout; each rank writes its result."""
+    from lanczosnet_torch.parallel import multihost
+
+    w = multihost.world()
+    res = qm8_first_step_case(torch.load(spec_file, weights_only=False), w.device,
+                              multihost.mesh2d(*QM8_FIRST_STEP_MESH))
+    (Path(out_dir) / f"rank{w.rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def qm8_parallel_run(name: str, tmp: Path, device_arg, predicted: dict) -> dict:
+    """Train a run of ``QM8_PARALLEL_RUNS`` through the CLI → its JSON
+    line's fields; raises on a gate."""
+    path, cfg, cut = qm8_parallel_config(name, tmp)
+    dp, tp = QM8_PARALLEL_RUNS[name][3]
+    t0 = time.perf_counter()
+    cli_process(path, device_arg)
+    wall = time.perf_counter() - t0
+    run = only_run_dir(tmp / "exp", "_train")
+    recs = [read_metrics(run, r) for r in range(dp * tp)]
+    setups = [next(e for e in rec if e["event"] == "setup" and "rank" in e) for rec in recs]
+    tests = [[e for e in rec if e["event"] == "test"][0] for rec in recs]
+    epochs = [e for e in recs[0] if e["event"] == "epoch"]
+    steps = int(cfg["dataset"]["num_train"]) // int(cfg["train"]["batch_size"])
+    losses = [e["loss"] for e in epochs]
+    comm_s = sum(e["comm"]["staging_s"] + e["comm"]["transport_s"] for e in epochs)
+    packs = [e for e in recs[0] if e["event"] == "pack"]
+    state = [t["state_bytes"] for t in tests]
+    out = {"run": name, "config": Path(QM8_PARALLEL_RUNS[name][0]).name, "cut": cut,
+           "mesh": {"dp": setups[0]["dp"], "tp": setups[0]["tp"]}, "ranks": dp * tp,
+           "backend": setups[0]["backend"], "ranks_per_card": setups[0]["ranks_per_card"],
+           "rank_devices": [e["device"] for e in setups], "epoch_loss": losses,
+           "val_mae": [e["mae"] for e in recs[0] if e["event"] == "val"],
+           "test_mae": tests[0]["mae"], "cli_wall_s": wall,
+           "step_ms_median": 1e3 * float(np.median([e["epoch_time_s"] for e in epochs])) / steps,
+           "step_ms": [1e3 * e["epoch_time_s"] / steps for e in epochs],
+           # the first epoch carries each rank's warm-up (torch._dynamo's import
+           # at the first optimizer step, the first launches)
+           "step_ms_last_epoch": 1e3 * epochs[-1]["epoch_time_s"] / steps,
+           "graphs_per_sec": [e["graphs_per_sec"] for e in epochs],
+           "comm_share": comm_s / sum(e["epoch_time_s"] for e in epochs),
+           "comm_staged_mb_a_step": sum(e["comm"]["staged_bytes"] for e in epochs)
+           / len(epochs) / steps / 2**20,
+           "peak_gb_per_rank": [t.get("peak_memory_mb", 0.0) / 1024 for t in tests],
+           "setup_s_rank0": {k: v for e in recs[0] if e["event"] == "setup"
+                             for k, v in e.items() if k.endswith("_s")},
+           "pack_s": {e["split"]: e["seconds"] for e in packs},
+           "lanczos_tridiag_launches": sum(e["lanczos_launches"] for e in packs),
+           "state_bytes_per_rank": state, "predicted_state_bytes": predicted[(dp, tp)]}
+    fails = []
+    if device_arg is None and not all(d.startswith("cuda") for d in out["rank_devices"]):
+        fails.append(f"a rank ran off the card: {out['rank_devices']}")
+    if (out["mesh"]["dp"], out["mesh"]["tp"]) != (dp, tp):
+        fails.append(f"the mesh is {out['mesh']}, not dp={dp} × tp={tp}")
+    if len(losses) != QM8_PARALLEL_RUNS[name][2] or not np.isfinite(losses).all():
+        fails.append(f"epoch losses {losses}")
+    elif not losses[-1] < losses[0]:
+        fails.append(f"the loss did not fall: {losses}")
+    if any(b != predicted[(dp, tp)] for b in state):
+        fails.append(f"state bytes a rank {state}, the rule predicts {predicted[(dp, tp)]}")
+    if device_arg is None and out["lanczos_tridiag_launches"] < len(packs):
+        fails.append(f"rank 0's packs launched B1 {out['lanczos_tridiag_launches']} times")
+    if fails:
+        raise SmokeFailure(f"qm8_parallel {name}: " + "; ".join(fails))
+    out["run_dir"], out["cfg"] = run, cfg
+    return out
+
+
+def qm8_parallel_follow(t: dict, tmp: Path, dev, device_arg) -> dict:
+    """-t and one resumed epoch in the ranks of a trained run, -t on one
+    device, ``Predictor.from_run_dir`` on one device → fields; raises on
+    a gate."""
+    from lanczosnet_torch.parallel import multihost
+
+    run, cfg = t["run_dir"], t["cfg"]
+    # on one device first: the resume in the ranks may write a new best
+    best = run / "checkpoints" / "best.pt"
+    one = {**cfg, "exp_dir": str(tmp / "one"), "test": {"test_model": str(best)},
+           "train": {**cfg["train"], "tp": 1, "num_devices": 1}}
+    path = tmp / "one_device_test.yaml"
+    path.write_text(config_io.dumps(one))
+    with kept_runners("QM8Runner") as made:
+        rc = cli.main(["-c", str(path), "-t", *(["--device", device_arg] if device_arg else [])])
+    if rc != 0:
+        raise SmokeFailure(f"one-device -t of {best} exited {rc}")
+    (one_mae,) = [e["mae"] for e in read_metrics(only_run_dir(tmp / "one", "_test"))
+                  if e["event"] == "test"]
+    runner = made[0]
+    test = runner.datasets["test"]
+    with torch.inference_mode():
+        restored = np.concatenate([
+            runner.model(to_device(test.slice_batch(np.arange(lo, min(lo + 64, len(test)))),
+                                   runner.device)).cpu().numpy()
+            for lo in range(0, len(test), 64)]) * runner.stats.std + runner.stats.mean
+    pred = Predictor.from_run_dir(run, device=dev)
+    graphs = synthetic_qm8_graphs(len(test), seed=int(cfg["dataset"].get("seed", 7)) + 2,
+                                  n_hi=min(int(cfg["dataset"]["n_max"]), 28))
+    served = pred.predict(graphs)
+    serve_err = float(np.abs(served - restored).max())
+
+    t0 = time.perf_counter()
+    code = multihost.launch(t["ranks"], "chip_smoke:qm8_parallel_followups",
+                            [str(run / "config.yaml"), device_arg], device=device_arg,
+                            store_dir=tmp, pythonpath=[Path(__file__).resolve().parent],
+                            timeout=600)
+    if code != 0:
+        raise SmokeFailure(f"qm8_parallel {t['run']}: -t or resume in the ranks exited {code}")
+    followup_s = time.perf_counter() - t0
+    (ranks_mae,) = [e["mae"] for e in read_metrics(Path(f"{run}_t")) if e["event"] == "test"]
+    resumed = [e["epoch"] for e in read_metrics(run) if e["event"] == "epoch"][len(t["epoch_loss"]):]
+    out = {"followups_wall_s": followup_s, "ranks_test_mae": ranks_mae,
+           "one_device_test_mae": one_mae, "resumed_epochs": resumed,
+           "served_max_abs_err_vs_one_device": serve_err}
+    fails = []
+    if max(abs(ranks_mae - one_mae), abs(t["test_mae"] - one_mae)) > QM8_RETEST_TOL:
+        fails.append(f"-t in the ranks {ranks_mae}, on one device {one_mae}, the run's test "
+                     f"MAE {t['test_mae']}")
+    if resumed != [len(t["epoch_loss"])]:
+        fails.append(f"the resumed run logged epochs {resumed}")
+    if not (np.isfinite(served).all() and serve_err <= TOL):
+        fails.append(f"from_run_dir answers {serve_err} from the one-device model's")
+    if fails:
+        raise SmokeFailure(f"qm8_parallel {t['run']}: " + "; ".join(fails))
+    return out
+
+
+def qm8_first_step_check(dev, tmp: Path, device_arg) -> dict:
+    """The flagship's first step at full width on a ``QM8_FIRST_STEP_MESH``
+    of ranks against one device's, on the same batch (64 graphs packed
+    here), weights and dropout masks → fields; raises on the gate."""
+    from lanczosnet_torch.parallel import multihost
+
+    cfg = config_io.loads(QM8_TP4_CONFIG.read_text())
+    graphs = synthetic_qm8_graphs(int(cfg["train"]["batch_size"]), seed=11)
+    pack = pack_dataset(graphs, n_max=int(cfg["dataset"]["n_max"]),
+                        num_eig_vec=int(cfg["model"]["num_eig_vec"]), standardize=True, device=dev)
+    batch = pack.slice_batch(np.arange(len(pack)))
+    model_cfg = {**cfg["model"], "num_atom": NUM_ATOM, "num_task": NUM_TASK,
+                 "num_edge_type": pack.ops.shape[1] - 1, "node_feat_dim": pack.node_feat.shape[-1]}
+    model = build_model(model_cfg)
+    model.init_weights(torch.Generator().manual_seed(int(cfg["seed"])))
+    spec = {"model": model_cfg, "weights": model.state_dict(), "seed": int(cfg["seed"]),
+            "train": {k: cfg["train"][k] for k in ("optimizer", "lr", "wd")},
+            "batch": {f: None if getattr(batch, f) is None else getattr(batch, f).numpy()
+                      for f in ("atom_type", "node_feat", "ops", "mask", "label", "ritz_val",
+                                "ritz_vec", "cluster")}}
+    spec_file, out = tmp / "first_step.pt", tmp / "first_step"
+    out.mkdir()
+    torch.save(spec, spec_file)
+    dp, tp = QM8_FIRST_STEP_MESH
+    t0 = time.perf_counter()
+    code = multihost.launch(dp * tp, "chip_smoke:qm8_first_step",
+                            [str(spec_file), str(out), device_arg], device=device_arg,
+                            store_dir=tmp, pythonpath=[Path(__file__).resolve().parent],
+                            timeout=600)
+    if code != 0:
+        raise SmokeFailure(f"qm8_parallel first step: the {dp * tp} ranks exited {code}")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(dp * tp)]
+    one = qm8_first_step_case(spec, dev)
+    rel = max(abs(r["loss"] - one["loss"]) / abs(one["loss"]) for r in ranks)
+    res = {"first_step_mesh": {"dp": dp, "tp": tp}, "first_step_loss_one_device": one["loss"],
+           "first_step_loss_ranks": [r["loss"] for r in ranks], "first_step_loss_rel": rel,
+           "first_step_rtol": QM8_FIRST_STEP_RTOL, "first_step_wall_s": wall,
+           "first_step_state_bytes": [r["state_bytes"] for r in ranks],
+           "one_device_state_bytes": one["state_bytes"]}
+    if not rel <= QM8_FIRST_STEP_RTOL:
+        raise SmokeFailure(f"qm8_parallel: the first step at dp={dp} × tp={tp} is {rel} from "
+                           f"one device's loss (relative)")
+    return res
+
+
+def b1_at_mesh_shapes(dev) -> dict:
+    """B1 against its plain version at each data-parallel block of the
+    flagship's batch (B = 64/dp): 0.0 apart in all six outputs."""
+    k = FLAGSHIP_MODEL["num_eig_vec"]
+    errs = {}
+    for dp in sorted({shape[0] for *_, shape in QM8_PARALLEL_RUNS.values()}):
+        b = SERVE_BATCH // dp
+        s, mask = qm8_operators(b, 20 + dp, dev)
+        got = lanczos_cuda.lanczos_tridiag_cuda_resid(s, mask, k, EPS)
+        want = lanczos_tridiag_resid(s, mask, k, EPS)
+        errs[b] = compare_outputs(f"qm8_parallel-b{b}", s, k, got, want)
+    if any(e != 0.0 for e in errs.values()):
+        raise SmokeFailure(f"B1 differs from its plain version at the mesh's batches: {errs}")
+    return errs
+
+
+def phase_qm8_parallel(dev, smi: str, tmp: Path, device_arg=None) -> int:
+    """The QM8 runner's data and tensor parallelism through the CLI, the
+    ranks sharing the card: the runs of ``QM8_PARALLEL_RUNS``, the
+    tp run's follow-ups, the first step against one device, B1 at the
+    mesh's batch blocks. The runs share one pack cache in ``tmp``: the
+    first run's rank 0 packs (B1 on the card), the others read it.
+    Returns B1's launches in the runs' packs."""
+    t_phase = time.perf_counter()
+    tmp.mkdir(parents=True)
+    cache = os.environ.get("LANCZOSNET_TORCH_CACHE")
+    os.environ["LANCZOSNET_TORCH_CACHE"] = str(tmp / "pack_cache")
+    try:
+        launches = qm8_parallel_runs(dev, smi, tmp, device_arg)
+    finally:
+        if cache is None:
+            del os.environ["LANCZOSNET_TORCH_CACHE"]
+        else:
+            os.environ["LANCZOSNET_TORCH_CACHE"] = cache
+    checks = qm8_first_step_check(dev, tmp, device_arg)
+    if device_arg is None:
+        checks["b1_max_abs_err_vs_plain"] = b1_at_mesh_shapes(dev)
+    emit("qm8_parallel_checks", **checks, lanczos_tridiag_launches=launches,
+         phase_s=time.perf_counter() - t_phase, nvidia_smi=smi)
+    if device_arg is None and launches == 0:
+        raise SmokeFailure("qm8_parallel: no pack of the phase launched B1")
+    return launches
+
+
+def qm8_parallel_runs(dev, smi: str, tmp: Path, device_arg) -> int:
+    """The runs of ``QM8_PARALLEL_RUNS`` and the tp run's follow-ups, a
+    JSON line each → B1's launches in their packs."""
+    from lanczosnet_torch.parallel.tensor import predicted_state_bytes, state_plan
+
+    predicted = {}
+    for _, (src, _, _, (dp, tp)) in QM8_PARALLEL_RUNS.items():
+        cfg = config_io.loads(src.read_text())
+        one = build_model({**cfg["model"], "num_atom": NUM_ATOM, "num_task": NUM_TASK})
+        predicted[(dp, tp)] = predicted_state_bytes(state_plan(one, tp), tp)
+    launches = 0
+    for name in QM8_PARALLEL_RUNS:
+        t = qm8_parallel_run(name, tmp / name, device_arg, predicted)
+        if name == QM8_PARALLEL_FOLLOWED:
+            t.update(qm8_parallel_follow(t, tmp / name, dev, device_arg))
+        launches += t["lanczos_tridiag_launches"]
+        emit("qm8_parallel", **{k: v for k, v in t.items() if k not in ("run_dir", "cfg")},
+             nvidia_smi=smi)
+    return launches
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2219,12 +2562,14 @@ def main() -> None:
         dense_launches = phase_dense_citation(smi, Path(runs) / "dense")
         graphs = phase_sparse_citation(dev, smi, Path(runs) / "sparse")
         phase_sharded_citation(dev, smi, Path(runs) / "sharded", graphs)
+        parallel_launches = phase_qm8_parallel(dev, smi, Path(runs) / "qm8_parallel")
     t64, t256 = kern["timing"][SERVE_BATCH], kern["timing"][256]
     ts = stream["timing"]
     no_library = "none: no single PyTorch call computes K-step Lanczos"
     by_path = {"serve": serve_launches, "qm8_train_packs": pack_launches,
                "qm8_models_bf16_run": model_launches[QM8_BF16],
-               "qm8_models_ada_run": model_launches[QM8_ADA], **front_launches}
+               "qm8_models_ada_run": model_launches[QM8_ADA], **front_launches,
+               "qm8_parallel": parallel_launches}
     print(json.dumps({"kernels": [{
         "name": "lanczos_tridiag",
         "route": "cuda",

@@ -13,11 +13,15 @@ it holds ``config.yaml``, ``run.log``, ``metrics.jsonl`` and
 raised; the traceback is in the log.
 
 A config with ``train.num_devices: D > 1`` (``SparseCitationRunner``)
-runs on D ranks. Outside a process group this command starts them
-itself, D local processes (``parallel/multihost.py:launch``), and its
-exit code is theirs; under ``torchrun --nproc-per-node D`` each rank
-joins the group, and rank 0 mints the run directory for all. Rank r > 0
-logs to ``run.rank<r>.log``. A group whose size is not D raises.
+runs on D ranks; a ``QM8Runner`` config with ``train.num_devices`` or
+``train.tp`` > 1 on the dp·tp ranks of its mesh
+(``parallel/mesh.py:mesh_shape``: ``num_devices`` defaults to ``tp``,
+and devices past dp·tp are left out, as the JAX runner leaves them).
+Outside a process group this command starts the ranks itself, local
+processes (``parallel/multihost.py:launch``), and its exit code is
+theirs; under ``torchrun --nproc-per-node D`` each rank joins the
+group, and rank 0 mints the run directory for all. Rank r > 0 logs to
+``run.rank<r>.log``. A group whose size is not the run's raises.
 """
 
 from __future__ import annotations
@@ -28,21 +32,32 @@ from pathlib import Path
 
 import numpy as np
 
-from lanczosnet_torch.parallel import multihost
+from lanczosnet_torch.parallel import mesh, multihost
 from lanczosnet_torch.train.runner import build_runner
 from lanczosnet_torch.train.unported import refuse_unported
 from lanczosnet_torch.utils.config import AttrDict, load_config, loads, parse_arguments
 from lanczosnet_torch.utils.logger import get_logger, setup_logging
 
 
-def num_devices(config) -> int:
-    return int((config.get("train") or {}).get("num_devices", 1) or 1)
+def num_ranks(config) -> int:
+    """The ranks a config runs on: ``QM8Runner``'s mesh, dp·tp; the
+    other runners' ``train.num_devices``. 1 where no mesh fits the
+    config: the runner raises that, into the run's log."""
+    tcfg = config.get("train") or {}
+    if config.get("runner", "QM8Runner") != "QM8Runner":
+        return int(tcfg.get("num_devices", 1) or 1)
+    try:
+        dp, tp = mesh.mesh_shape(int(tcfg.get("batch_size", 1)),
+                                 int(tcfg.get("num_devices") or 0), int(tcfg.get("tp") or 1))
+    except ValueError:
+        return 1
+    return dp * tp
 
 
 def run(config, test: bool, log_level: str = "INFO", device=None) -> int:
     """Build the config's runner and train or test it → the exit code.
     In a sharded run every rank calls this, inside the group."""
-    rank = multihost.world().rank if num_devices(config) > 1 else 0
+    rank = multihost.world().rank if num_ranks(config) > 1 else 0
     name = "run.log" if rank == 0 else f"run.rank{rank}.log"
     setup_logging(Path(config.save_dir) / name, log_level, stream=rank == 0)
     log = get_logger()
@@ -74,7 +89,7 @@ def main(argv=None) -> int:
             if comm.rank == 0 else None)
         return run(config, args.test, args.log_level, args.device)
     config = load_config(args.config_file, is_test=args.test, comment=args.comment)
-    ndev = num_devices(config)
+    ndev = num_ranks(config)
     if ndev <= 1:
         return run(config, args.test, args.log_level, args.device)
     setup_logging(f"{config.save_dir}/run.log", args.log_level)
@@ -84,6 +99,10 @@ def main(argv=None) -> int:
     except NotImplementedError:
         log.error("run failed:\n%s", traceback.format_exc())
         return 1
+    asked = int(config.train.get("num_devices") or 0)
+    if asked > ndev:
+        log.info("train.num_devices=%d: the mesh takes %d ranks, %d devices are left out",
+                 asked, ndev, asked - ndev)
     log.info("exp %s | run %s | config %s | starting %d ranks", config.exp_name,
              config.run_id, args.config_file, ndev)
     code = multihost.launch(ndev, "lanczosnet_torch.cli:run_rank",
@@ -95,7 +114,7 @@ def main(argv=None) -> int:
 
 
 def _peek_devices(path: str) -> int:
-    return num_devices(loads(Path(path).read_text()))
+    return num_ranks(loads(Path(path).read_text()))
 
 
 if __name__ == "__main__":

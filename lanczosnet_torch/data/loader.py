@@ -9,6 +9,8 @@ fixed-shape arrays, so loading is index slicing:
 - every batch has the same shape: the tail batch is padded with ghost
   graphs (index 0, node mask zeroed) and a ``valid`` vector weights
   them out;
+- a data-parallel rank takes its block of each batch (``rows``), ghost
+  graphs and ``valid`` included;
 - ``prefetch_to_device`` copies each batch from pinned host memory with
   ``non_blocking=True`` and keeps one batch in flight, so the copy of
   batch i+1 overlaps the step on batch i.
@@ -28,7 +30,7 @@ from lanczosnet_torch.data.dataset import PackedDataset
 
 class BatchLoader:
     """Iterates ``(GraphBatch, valid [B])`` epochs over a ``PackedDataset``
-    as CPU tensors."""
+    as CPU tensors; ``rows`` of each batch only, where given."""
 
     def __init__(
         self,
@@ -37,11 +39,13 @@ class BatchLoader:
         shuffle: bool = True,
         drop_last: bool = False,
         seed: int = 0,
+        rows: slice = slice(None),
     ):
         self.ds = ds
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.rows = rows
         self._rng = np.random.Generator(np.random.Philox(seed))
 
     def __len__(self) -> int:
@@ -61,6 +65,7 @@ class BatchLoader:
                 pad = bs - len(idx)
                 idx = np.concatenate([idx, np.zeros(pad, idx.dtype)])
                 valid[bs - pad :] = 0.0
+            idx, valid = idx[self.rows], valid[self.rows]
             batch = self.ds.slice_batch(idx)
             valid_t = torch.from_numpy(valid)
             if valid.min() == 0.0:

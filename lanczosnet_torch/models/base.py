@@ -52,7 +52,15 @@ def edge_message_concat(ops: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 class Dropout(nn.Module):
     """Inverted dropout whose mask comes from ``generator`` when one is
     set (a runner seeds one per run, on the model's device) and from
-    PyTorch's default stream otherwise."""
+    PyTorch's default stream otherwise.
+
+    Across the ranks of a data- or tensor-parallel QM8 run every rank's
+    generator has the run's seed, and ``rows = (d, dp)`` says that ``x``
+    holds block ``d`` of ``dp`` equal row blocks of the whole batch: the
+    rank draws the whole batch's mask, as one device would, and keeps
+    its block. So the ``tp`` ranks of one block draw the same masks (they
+    compute one replicated function), and a dp × tp run draws the masks
+    of one device."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -60,6 +68,7 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate {p} is not in [0, 1)")
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
+        self.rows = (0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
@@ -67,15 +76,20 @@ class Dropout(nn.Module):
         if self.generator is None:
             return F.dropout(x, self.p, training=True)
         keep = 1.0 - self.p
-        scale = torch.empty_like(x).bernoulli_(keep, generator=self.generator).div_(keep)
-        return x * scale
+        d, dp = self.rows
+        whole = x.new_empty((dp * x.shape[0],) + tuple(x.shape[1:]))
+        scale = whole.bernoulli_(keep, generator=self.generator)[d * x.shape[0]:][: x.shape[0]]
+        return x * scale.div_(keep)
 
 
-def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Draw every ``Dropout`` mask of ``model`` from ``generator``."""
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator],
+                          rows: tuple[int, int] = (0, 1)) -> None:
+    """Draw every ``Dropout`` mask of ``model`` from ``generator``, the
+    rows ``rows = (d, dp)`` of the whole batch's (see ``Dropout``)."""
     for mod in model.modules():
         if isinstance(mod, Dropout):
             mod.generator = generator
+            mod.rows = rows
 
 
 class OneHotEmbed(nn.Module):

@@ -18,8 +18,22 @@ one all-reduce a step (``Comm.all_reduce_flat``), before the optimizer.
 - ``ring_hop``: send to rank+1, receive from rank−1; its backward is the
   reverse hop.
 
+The tensor-parallel QM8 runner (``parallel/tensor.py``) keeps another
+convention inside a ``tp`` group: its ranks compute one replicated
+function on the same graphs, so each holds the whole loss and the whole
+cotangent of a gathered value.
+
+- ``all_gather_features``: the ranks' blocks of one axis concatenated;
+  its backward is this rank's block of the cotangent (a reduce-scatter
+  would count the cotangent once for each rank);
+- ``psum_cotangent``: the identity; its backward is the sum over ranks
+  of the cotangents (the input of a column-parallel product, of which
+  each rank differentiates its columns only).
+
 ``Comm.rank`` and ``Comm.size`` are JAX's ``axis_index`` and the axis
-size.
+size. A ``Comm`` runs on the default group or on the ``group`` it is
+given (the QM8 runner's ``dp`` and ``tp`` groups, ``parallel/
+multihost.py:mesh2d``).
 
 A replicated value is not one logical value here but a copy on each
 rank, so a gather from it (``edge_gather`` in edge mode) needs no
@@ -43,7 +57,9 @@ ordered on the stream: the comm layer neither synchronizes nor times it.
 
 Host data (the pieces rank 0 cuts from the graph) travels over
 ``cpu_group``, a gloo group: the main group where it is gloo, a second
-group of the same ranks where the main one is NCCL.
+group of the same ranks where the main one is NCCL. A ``Comm`` on a
+sub-group carries device collectives; its host data would travel over
+the sub-group itself.
 """
 
 from __future__ import annotations
@@ -83,16 +99,17 @@ class CommStats:
 
 
 class Comm:
-    """The default process group as the sharded ops use it: the rank, the
-    size, the backend, the staging rule and its pinned buffers, the
-    counts. ``cpu_group`` carries host data where the default group is
-    NCCL (None: the default group, gloo, carries it)."""
+    """A process group as the sharded ops use it (``group``; None: the
+    default one): this rank's place in it, its size, the backend, the
+    staging rule and its pinned buffers, the counts. ``cpu_group``
+    carries host data where the group is NCCL (None: ``group`` itself)."""
 
-    def __init__(self, cpu_group=None):
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
-        self.backend = str(dist.get_backend())
-        self.cpu_group = cpu_group
+    def __init__(self, group=None, cpu_group=None):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.backend = str(dist.get_backend(group))
+        self.cpu_group = group if cpu_group is None else cpu_group
         self.stats = CommStats()
         self._host: dict = {}
 
@@ -109,7 +126,10 @@ class Comm:
         ends before the call that took it returns."""
         key = (slot, tuple(shape), dtype)
         if key not in self._host:
-            self._host[key] = torch.empty(shape, dtype=dtype, pin_memory=True)
+            # a normal tensor even when made under inference mode (an
+            # evaluation), so that training may write it later
+            with torch.inference_mode(False):
+                self._host[key] = torch.empty(shape, dtype=dtype, pin_memory=True)
         return self._host[key]
 
     def _to_host(self, slot: str, t: torch.Tensor) -> torch.Tensor:
@@ -149,7 +169,7 @@ class Comm:
         """A new tensor: ``x`` reduced over the ranks."""
         out = x.detach().clone(memory_format=torch.contiguous_format)
         self._count(out)
-        self._run(out, dist.all_reduce, out, op=op)
+        self._run(out, dist.all_reduce, out, op=op, group=self.group)
         return out
 
     def all_reduce_flat(self, tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -167,10 +187,10 @@ class Comm:
         if self.stages("all_gather", x):
             h = self._to_host("gather_in", x)
             out_h = self._buffer("gather_out", shape, x.dtype)
-            self._run(h, dist.all_gather, list(out_h.chunk(self.size)), h)
+            self._run(h, dist.all_gather, list(out_h.chunk(self.size)), h, group=self.group)
             return self._to_device(out_h, x.device)
         out = x.new_empty(shape)
-        self._run(x, dist.all_gather, list(out.chunk(self.size)), x)
+        self._run(x, dist.all_gather, list(out.chunk(self.size)), x, group=self.group)
         return out
 
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
@@ -182,31 +202,35 @@ class Comm:
         if self.stages("reduce_scatter", x):
             h = self._to_host("scatter_in", x)
             out_h = self._buffer("scatter_out", shape, x.dtype)
-            self._run(h, dist.reduce_scatter, out_h, list(h.chunk(self.size)))
+            self._run(h, dist.reduce_scatter, out_h, list(h.chunk(self.size)), group=self.group)
             return self._to_device(out_h, x.device)
         out = x.new_empty(shape)
-        self._run(x, dist.reduce_scatter, out, list(x.chunk(self.size)))
+        self._run(x, dist.reduce_scatter, out, list(x.chunk(self.size)), group=self.group)
         return out
 
     def hop(self, x: torch.Tensor, step: int) -> torch.Tensor:
         """Send ``x`` to rank + step and receive the block of rank − step."""
         x = x.detach().contiguous()
-        to, frm = (self.rank + step) % self.size, (self.rank - step) % self.size
+        to, frm = (self._global((self.rank + s) % self.size) for s in (step, -step))
         self._count(x)
         if self.stages("ring_hop", x):
             h = self._to_host("hop_send", x)
             r = self._buffer("hop_recv", x.shape, x.dtype)
-            self._run(h, _send_recv, h, r, to, frm)
+            self._run(h, _send_recv, h, r, to, frm, self.group)
             return self._to_device(r, x.device)
         out = torch.empty_like(x)
-        self._run(x, _send_recv, x, out, to, frm)
+        self._run(x, _send_recv, x, out, to, frm, self.group)
         return out
+
+    def _global(self, rank: int) -> int:
+        """The default group's number of this group's ``rank``."""
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
     # --------------------------------------------------------- host data, rank 0
     def broadcast_object(self, obj=None):
         """``obj`` of rank 0 on every rank (pickled over ``cpu_group``)."""
         box = [obj]
-        dist.broadcast_object_list(box, src=0, group=self.cpu_group)
+        dist.broadcast_object_list(box, src=self._global(0), group=self.cpu_group)
         return box[0]
 
     def scatter_arrays(self, per_rank: Optional[Sequence[np.ndarray]], shape, dtype) -> np.ndarray:
@@ -217,7 +241,7 @@ class Comm:
         if self.rank == 0:
             pieces = [torch.from_numpy(np.ascontiguousarray(a, dtype)) for a in per_rank]
         t0 = time.perf_counter()
-        dist.scatter(out, pieces, src=0, group=self.cpu_group)
+        dist.scatter(out, pieces, src=self._global(0), group=self.cpu_group)
         self.stats.calls += 1
         self.stats.bytes += out.numel() * out.element_size()
         self.stats.transport_s += time.perf_counter() - t0
@@ -228,7 +252,7 @@ class Comm:
         t = (torch.from_numpy(np.ascontiguousarray(a, dtype)) if self.rank == 0
              else torch.empty(tuple(shape), dtype=_torch_dtype(dtype)))
         t0 = time.perf_counter()
-        dist.broadcast(t, src=0, group=self.cpu_group)
+        dist.broadcast(t, src=self._global(0), group=self.cpu_group)
         self.stats.calls += 1
         self.stats.bytes += t.numel() * t.element_size()
         self.stats.transport_s += time.perf_counter() - t0
@@ -242,8 +266,8 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
-def _send_recv(send: torch.Tensor, recv: torch.Tensor, to: int, frm: int) -> None:
-    ops = [dist.P2POp(dist.isend, send, to), dist.P2POp(dist.irecv, recv, frm)]
+def _send_recv(send: torch.Tensor, recv: torch.Tensor, to: int, frm: int, group) -> None:
+    ops = [dist.P2POp(dist.isend, send, to, group), dist.P2POp(dist.irecv, recv, frm, group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
 
@@ -270,6 +294,28 @@ class _AllGatherRows(torch.autograd.Function):
         return ctx.comm.reduce_scatter(g), None
 
 
+class _AllGatherFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim, ctx.width = comm, dim, x.shape[dim]
+        return comm.all_gather(x.movedim(dim, 0)).movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.comm.rank * ctx.width, ctx.width), None, None
+
+
+class _PSumCotangent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g), None
+
+
 class _RingHop(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm):
@@ -294,6 +340,18 @@ def pmax(x: torch.Tensor, comm: Comm) -> torch.Tensor:
 def all_gather_rows(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     """The ranks' row blocks of ``x`` in rank order; backward a reduce-scatter."""
     return _AllGatherRows.apply(x, comm)
+
+
+def all_gather_features(x: torch.Tensor, comm: Comm, dim: int = -1) -> torch.Tensor:
+    """The ranks' blocks of ``x`` on axis ``dim`` concatenated in rank
+    order; backward this rank's block of the cotangent, which every rank
+    of the group holds whole."""
+    return _AllGatherFeatures.apply(x, comm, dim)
+
+
+def psum_cotangent(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """``x`` itself; backward the sum over ranks of the cotangents."""
+    return _PSumCotangent.apply(x, comm)
 
 
 def ring_hop(x: torch.Tensor, comm: Comm) -> torch.Tensor:

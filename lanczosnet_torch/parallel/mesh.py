@@ -1,6 +1,13 @@
-"""The sharded forms of a COO operator and of node arrays, on the host.
+"""The QM8 runner's mesh, and the sharded forms of a COO operator and of
+node arrays, on the host.
 
-Counterpart of the sparse half of ``lanczosnet_tpu/parallel/mesh.py``.
+Counterpart of ``lanczosnet_tpu/parallel/mesh.py``. The dense half is
+the QM8 runner's ``(dp, tp)`` mesh: ``mesh_shape`` is the JAX runner's
+formula (``lanczosnet_tpu/train/runner.py``), and each data-parallel
+rank takes a contiguous block of every batch (``batch_rows``), as
+``P("data")`` places a batch on the JAX mesh.
+
+The sparse half follows.
 Each function takes the whole host operator (``row``, ``col``, ``val``
 numpy arrays, destination-major) and returns every rank's piece stacked
 on a leading ``[D]`` axis: the arrays the JAX functions place on the
@@ -34,6 +41,35 @@ import numpy as np
 import torch
 
 from lanczosnet_torch.parallel.comm import Comm
+
+
+def largest_divisor_leq(n: int, cap: int) -> int:
+    for d in range(min(n, cap), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def mesh_shape(batch_size: int, num_devices: int = 0, tp: int = 1) -> tuple[int, int]:
+    """(dp, tp) of the QM8 runner: with ``tp > 1``, ``dp`` is the largest
+    divisor of the batch that fits ``num_devices // tp``; otherwise the
+    largest that fits ``num_devices``. Devices past ``dp·tp`` are left
+    out, as the JAX runner leaves them out. ``num_devices`` 0 (not set)
+    means ``tp``: the port starts a process a rank, so it shards only
+    where a config asks, where JAX takes every device it sees."""
+    tp = max(1, int(tp))
+    ndev = int(num_devices) or tp
+    if ndev < tp:
+        raise ValueError(f"train.tp={tp} needs at least {tp} devices, "
+                         f"train.num_devices={num_devices}")
+    return largest_divisor_leq(int(batch_size), ndev // tp), tp
+
+
+def batch_rows(batch_size: int, dp: int, d: int) -> slice:
+    """Data-parallel rank ``d``'s rows of a batch: its contiguous
+    ``batch_size/dp``."""
+    n = batch_size // dp
+    return slice(d * n, (d + 1) * n)
 
 
 def padded_nodes(n: int, ndev: int) -> tuple[int, int]:

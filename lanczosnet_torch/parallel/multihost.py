@@ -21,6 +21,11 @@ own, gloo when ranks share a card or run on the CPU (NCCL refuses two
 ranks on one card). ``World`` records the backend and how many ranks
 share a card; the runner logs both.
 
+The QM8 runner lays its ranks out as JAX's 2-D ``(data, model)`` mesh
+(``mesh2d``): rank ``r = d·tp + t`` holds column ``t`` of the model axis
+and row ``d`` of the data axis, with a ``Comm`` on the ``tp`` ranks of
+its row and one on the ``dp`` ranks of its column.
+
 ``global_put`` (the JAX function that lets each process of a multi-host
 mesh place its shards of a full host array) has no counterpart: here
 rank 0 builds every rank's piece and each rank receives only its own
@@ -65,6 +70,7 @@ class World:
     backend: str
     ranks_per_card: int  # 0 on the CPU
     comm: Comm
+    meshes: dict = dataclasses.field(default_factory=dict)  # (dp, tp) → Mesh2D
 
     def describe(self) -> dict:
         return {"rank": self.rank, "world_size": self.size, "local_rank": self.local_rank,
@@ -134,8 +140,41 @@ def initialize(world_size: int, device: str | torch.device | None = None,
                                 world_size=size, timeout=GROUP_TIMEOUT, **kwargs)
     backend = str(dist.get_backend())
     cpu_group = dist.new_group(backend="gloo") if backend != "gloo" else None
-    _WORLD = World(rank, size, local_rank, dev, backend, share, Comm(cpu_group))
+    _WORLD = World(rank, size, local_rank, dev, backend, share, Comm(cpu_group=cpu_group))
     return _WORLD
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """This rank's place in a ``(dp, tp)`` layout of the group: rank
+    ``d·tp + t``; ``tp_comm`` spans the ranks ``d·tp + j`` (j < tp),
+    ``dp_comm`` the ranks ``i·tp + t`` (i < dp)."""
+
+    dp: int
+    tp: int
+    d: int
+    t: int
+    dp_comm: Comm
+    tp_comm: Comm
+
+    def describe(self) -> dict:
+        return {"dp": self.dp, "tp": self.tp, "d": self.d, "t": self.t}
+
+
+def mesh2d(dp: int, tp: int) -> Mesh2D:
+    """The ``(dp, tp)`` layout of this rank's group (whose size must be
+    dp·tp). Every rank makes every group, in one order, the first time a
+    layout is asked for; later calls return the same ``Mesh2D``."""
+    w = world()
+    if w.size != dp * tp:
+        raise RuntimeError(f"a mesh of dp={dp} × tp={tp} needs {dp * tp} ranks, the process "
+                           f"group has {w.size}")
+    if (dp, tp) not in w.meshes:
+        d, t = divmod(w.rank, tp)
+        rows = [dist.new_group([i * tp + j for j in range(tp)]) for i in range(dp)]
+        cols = [dist.new_group([i * tp + j for i in range(dp)]) for j in range(tp)]
+        w.meshes[(dp, tp)] = Mesh2D(dp, tp, d, t, Comm(cols[t]), Comm(rows[d]))
+    return w.meshes[(dp, tp)]
 
 
 def world() -> World:

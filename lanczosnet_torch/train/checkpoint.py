@@ -9,7 +9,10 @@ into place, so a reader never sees half a file.
 In a sharded run only rank 0 writes (``writer``), as
 ``lanczosnet_tpu/train/checkpoint.py`` has the primary process write;
 the other ranks read the same files, after a barrier where rank 0 may
-still be writing.
+still be writing. A data- or tensor-parallel QM8 run writes the
+one-device state (``QM8Runner`` gathers a tensor-parallel model's
+blocks first, ``parallel/tensor.py``), so one device, ``-t`` and
+``serve.Predictor.from_run_dir`` read it as they read any run's.
 
 Layout inside the run directory:
     checkpoints/<tag>.pt           (tag: latest, best, …)

@@ -1,6 +1,6 @@
 """Experiment runner for graph regression (the QM8 configs).
 
-Counterpart of ``lanczosnet_tpu/train/runner.py`` on one device: builds
+Counterpart of ``lanczosnet_tpu/train/runner.py``: builds
 the three packed splits, the model and the optimizer from a config; runs
 the epochs with validation every ``valid_epoch``; keeps the best (on
 validation MAE) and the latest checkpoint; resumes; tests the best
@@ -19,6 +19,18 @@ seconds of the optimizer's set-up and of the resident splits' copy).
 the splits stay on the device and each epoch is gathered there
 (``train/scan_epoch.py``); otherwise batches stream from the host
 through ``data/loader.py``.
+
+Data and tensor parallelism. ``train.num_devices`` and ``train.tp`` lay
+the run out as the JAX runner's ``(dp, tp)`` mesh
+(``parallel/mesh.py:mesh_shape``), one process a rank
+(``parallel/multihost.py``; the CLI starts them): rank ``d·tp + t``
+trains on block ``d`` of every batch with block ``t`` of every cut
+parameter and of its Adam moments (``parallel/tensor.py``). Rank 0
+packs the splits (or reads the pack cache) and sends them to the
+others; only rank 0 writes checkpoints, which hold the one-device
+state, gathered, so that one device, ``Predictor.from_run_dir`` and
+``export.py`` read them unchanged. Rank r > 0 logs to
+``metrics.rank<r>.jsonl``. A group whose size is not the mesh's raises.
 """
 
 from __future__ import annotations
@@ -45,6 +57,14 @@ from lanczosnet_torch.data.loader import BatchLoader, prefetch_to_device
 from lanczosnet_torch.data.qm8 import import_reference_pickles, synthetic_qm8_graphs
 from lanczosnet_torch.models import build_model
 from lanczosnet_torch.models.base import set_dropout_generator
+from lanczosnet_torch.ops import lanczos_cuda
+from lanczosnet_torch.parallel import mesh, multihost
+from lanczosnet_torch.parallel.tensor import (
+    TensorParallel,
+    measured_state_bytes,
+    predicted_state_bytes,
+    state_plan,
+)
 from lanczosnet_torch.train.checkpoint import Checkpointer
 from lanczosnet_torch.train.optim import build_optimizer
 from lanczosnet_torch.train.scan_epoch import (
@@ -77,23 +97,44 @@ def _sync(device: torch.device) -> None:
 
 
 class QM8Runner:
-    """Config-driven molecular regression on one device."""
+    """Config-driven molecular regression on one device or a mesh of ranks."""
 
     def __init__(self, config: Mapping, device: str | torch.device | None = None):
         refuse_unported(config, "QM8Runner")
         self.config = config
-        self.device = resolve_device(device)
+        tcfg = config["train"]
+        self.batch_size = int(tcfg["batch_size"])
+        self.dp, self.tp = mesh.mesh_shape(self.batch_size, int(tcfg.get("num_devices") or 0),
+                                           int(tcfg.get("tp") or 1))
+        self.world = self.layout = None
+        if self.dp * self.tp > 1:
+            self.world = multihost.initialize(self.dp * self.tp, device)
+            self.layout = multihost.mesh2d(self.dp, self.tp)
+            self.device = self.world.device
+        else:
+            self.device = resolve_device(device)
+        self.rank = 0 if self.world is None else self.world.rank
+        self.rows = mesh.batch_rows(self.batch_size, self.dp,
+                                    0 if self.layout is None else self.layout.d)
+        self.dp_comm = None if self.layout is None else self.layout.dp_comm
         self.log = get_logger()
         self.run_dir = Path(config["save_dir"])
-        self.metrics = MetricsLogger(self.run_dir / "metrics.jsonl")
-        self.ckpt = Checkpointer(self.run_dir)
+        self.metrics = MetricsLogger(self.run_dir / (
+            "metrics.jsonl" if self.rank == 0 else f"metrics.rank{self.rank}.jsonl"))
+        self.ckpt = Checkpointer(self.run_dir, writer=self.rank == 0)
         self.seed = int(config.get("seed", 1234))
 
         dcfg = config["dataset"]
         mcfg = dict(config["model"])
         self.num_eig_vec = int(mcfg.get("num_eig_vec", 20)) if mcfg["name"] == "LanczosNet" else 0
         self.num_cluster = int(mcfg.get("num_partition", 2)) if mcfg["name"] == "GPNN" else 0
-        self.datasets = self._build_datasets(dcfg)
+        t0 = time.perf_counter()
+        if self.world is None:
+            self.datasets = self._build_datasets(dcfg)
+        else:
+            self.datasets = self.world.comm.broadcast_object(
+                self._build_datasets(dcfg) if self.rank == 0 else None)
+        datasets_s = time.perf_counter() - t0
         train = self.datasets["train"]
         self.stats = train.stats
 
@@ -105,10 +146,17 @@ class QM8Runner:
         self.model = build_model(mcfg)
         self.model.init_weights(torch.Generator().manual_seed(self.seed))
         self.model.to(self.device)
+        self.state_plan = state_plan(self.model, self.tp)
+        self.tensor_parallel = (TensorParallel(self.model, self.layout.tp_comm)
+                                if self.tp > 1 else None)
+        if self.world is not None:
+            self.metrics.log("setup", **self.world.describe(), **self.layout.describe(),
+                             datasets_s=datasets_s)
         self.log.info(
-            "runner: model=%s device=%s batch=%d train/val/test=%d/%d/%d n_max=%d",
-            mcfg["name"], self.device, int(config["train"]["batch_size"]),
-            len(train), len(self.datasets["val"]), len(self.datasets["test"]), train.n_max,
+            "runner: model=%s devices=%d (dp=%d tp=%d) device=%s batch=%d "
+            "train/val/test=%d/%d/%d n_max=%d", mcfg["name"], self.dp * self.tp, self.dp,
+            self.tp, self.device, self.batch_size, len(train), len(self.datasets["val"]),
+            len(self.datasets["test"]), train.n_max,
         )
 
     # ---------------------------------------------------------------- data
@@ -170,6 +218,7 @@ class QM8Runner:
                 self.log.info("pack cache hit for %s: %s", s, path)
                 continue
             t0 = time.perf_counter()
+            launches = lanczos_cuda.launches.count
             out[s] = pack_dataset(
                 raw[s](), n_max=n_max, operator_kind=kind, num_eig_vec=self.num_eig_vec,
                 num_cluster=self.num_cluster, stats=stats, standardize=standardize,
@@ -178,7 +227,8 @@ class QM8Runner:
             stats = out[s].stats or stats
             seconds = time.perf_counter() - t0
             self.log.info("packed %s: %d graphs in %.2fs", s, len(out[s]), seconds)
-            self.metrics.log("pack", split=s, graphs=len(out[s]), seconds=seconds)
+            self.metrics.log("pack", split=s, graphs=len(out[s]), seconds=seconds,
+                             lanczos_launches=lanczos_cuda.launches.count - launches)
             if path is not None:
                 path.parent.mkdir(parents=True, exist_ok=True)
                 # the suffix ends in .npz, or np.savez would append one
@@ -193,10 +243,8 @@ class QM8Runner:
         return out
 
     def _loader(self, split: str, shuffle: bool, drop_last: bool) -> BatchLoader:
-        return BatchLoader(
-            self.datasets[split], batch_size=int(self.config["train"]["batch_size"]),
-            shuffle=shuffle, drop_last=drop_last, seed=self.seed,
-        )
+        return BatchLoader(self.datasets[split], batch_size=self.batch_size, shuffle=shuffle,
+                           drop_last=drop_last, seed=self.seed, rows=self.rows)
 
     # ---------------------------------------------------------------- eval
     def _mae(self, esum, count) -> np.ndarray:
@@ -211,21 +259,48 @@ class QM8Runner:
         for batch, valid in prefetch_to_device(loader.epoch(), self.device):
             e, c = eval_step(batch, valid)
             esum, count = esum + e, count + c
+        if self.dp > 1:
+            summed = self.dp_comm.all_reduce(torch.cat([esum, count[None]]))
+            esum, count = summed[:-1], summed[-1]
         return self._mae(esum.cpu().numpy(), float(count))
 
+    def _resident_eval(self, split: str) -> ResidentEval:
+        return ResidentEval(device_dataset(self.datasets[split], self.device), self.batch_size,
+                            self.rows, self.dp_comm)
+
     # ---------------------------------------------------------------- state
+    def parameters(self) -> list[torch.nn.Parameter]:
+        """This rank's parameters, in the one-device model's order."""
+        tp = self.tensor_parallel
+        return list(self.model.parameters()) if tp is None else tp.parameters()
+
     def _state(self, optimizer, scheduler) -> dict:
+        """The one-device training state (under ``tp`` every rank gathers it)."""
+        tp = self.tensor_parallel
         return {
-            "model": self.model.state_dict(),
-            "optimizer": optimizer.state_dict(),
+            "model": self.model.state_dict() if tp is None else tp.full_state_dict(),
+            "optimizer": (optimizer.state_dict() if tp is None
+                          else tp.full_optimizer_state(optimizer.state_dict())),
             "scheduler": scheduler.state_dict(),
         }
 
     def _load_state(self, state: dict, optimizer=None, scheduler=None) -> None:
-        self.model.load_state_dict(state["model"], strict=True)
+        """Load a one-device state (under ``tp``, this rank's blocks of it)."""
+        tp = self.tensor_parallel
+        if tp is None:
+            self.model.load_state_dict(state["model"], strict=True)
+        else:
+            tp.load_full_state_dict(state["model"])
         if optimizer is not None:
-            optimizer.load_state_dict(state["optimizer"])
+            optimizer.load_state_dict(state["optimizer"] if tp is None
+                                      else tp.shard_optimizer_state(state["optimizer"]))
             scheduler.load_state_dict(state["scheduler"])
+
+    def state_bytes(self, optimizer) -> dict:
+        """This rank's bytes of parameters and Adam moments, measured, and
+        as the rule predicts them."""
+        return {"state_bytes": measured_state_bytes(self.parameters(), optimizer),
+                "predicted_state_bytes": predicted_state_bytes(self.state_plan, self.tp)}
 
     def _best_meta(self, epoch: int, val_mae: Optional[float] = None) -> dict:
         """Snapshot metadata: with the label width and the training
@@ -260,11 +335,10 @@ class QM8Runner:
         ``latest`` (``train.is_resume``) or of ``train.resume_model``.
         → (optimizer, scheduler, train_step, first epoch, best val MAE)."""
         tcfg = self.config["train"]
-        optimizer, scheduler, clip = build_optimizer(
-            self.model.parameters(), tcfg, steps_per_epoch
-        )
+        optimizer, scheduler, clip = build_optimizer(self.parameters(), tcfg, steps_per_epoch)
         set_dropout_generator(
-            self.model, torch.Generator(device=self.device).manual_seed(self.seed)
+            self.model, torch.Generator(device=self.device).manual_seed(self.seed),
+            rows=(0 if self.layout is None else self.layout.d, self.dp),
         )
         start_epoch, best_val = 0, float("inf")
         if tcfg.get("is_resume") and self.ckpt.exists("latest"):
@@ -276,7 +350,8 @@ class QM8Runner:
             self._load_state(Checkpointer.restore_file(tcfg["resume_model"], self.device,
                                                       self.config["model"]["name"]))
             self.log.info("warm-started from %s", tcfg["resume_model"])
-        train_step = make_train_step(self.model, optimizer, scheduler, clip)
+        train_step = make_train_step(self.model, optimizer, scheduler, clip, self.dp_comm,
+                                     self.tensor_parallel)
         return optimizer, scheduler, train_step, start_epoch, best_val
 
     def _validated(self, epoch: int, val_mae: np.ndarray, best_val: float, state: dict) -> float:
@@ -295,15 +370,36 @@ class QM8Runner:
         if snap and (epoch + 1) % snap == 0:
             self.ckpt.save(f"epoch_{epoch}", state, self._best_meta(epoch))
 
-    def _tested(self, best_val: float, test_mae_of) -> dict:
+    def _tested(self, best_val: float, test_mae_of, optimizer) -> dict:
         """Restore ``best`` and test it → the result of ``train()``."""
         test_mae = None
+        if self.world is not None:  # rank 0 may still be writing best
+            multihost.barrier()
         if self.ckpt.exists("best"):
             self._load_state(self.ckpt.restore("best", self.device))
             test_mae = float(test_mae_of().mean())
             self.log.info("best val %.6f | test MAE %.6f", best_val, test_mae)
-            self.metrics.log("test", mae=test_mae, best_val=best_val)
+            self.metrics.log("test", mae=test_mae, best_val=best_val,
+                             **self.state_bytes(optimizer), **self._peak_memory())
         return {"best_val_mae": best_val, "test_mae": test_mae}
+
+    def _peak_memory(self) -> dict:
+        if self.device.type != "cuda":
+            return {}
+        return {"peak_memory_mb": torch.cuda.max_memory_allocated(self.device) / 2**20}
+
+    def _comm_stats(self):
+        """The counts of this rank's ``dp`` and ``tp`` groups' comm layers."""
+        if self.layout is None:
+            return None
+        return [self.layout.dp_comm.stats.copy(), self.layout.tp_comm.stats.copy()]
+
+    def _comm_since(self, before) -> dict:
+        if before is None:
+            return {}
+        now = self._comm_stats()
+        return {"comm": {k: sum(b.minus(a)[k] for a, b in zip(before, now))
+                         for k in now[0].as_dict()}}
 
     def _train_scanned(self) -> dict:
         """The splits resident on the device; the epochs between two
@@ -320,7 +416,7 @@ class QM8Runner:
         eval_step = make_eval_step(self.model)
         t1 = time.perf_counter()
         data = device_dataset(self.datasets["train"], self.device)
-        val_eval = ResidentEval(device_dataset(self.datasets["val"], self.device), bs)
+        val_eval = self._resident_eval("val")
         _sync(self.device)
         self.metrics.log("setup", optimizer_s=t1 - t0, resident_s=time.perf_counter() - t1)
         device_shuffle = bool(tcfg.get("device_shuffle", True))
@@ -332,11 +428,12 @@ class QM8Runner:
         while epoch < max_epoch:
             group = min(valid_every, max_epoch - epoch)
             t0 = time.perf_counter()
+            comm0 = self._comm_stats()
             losses = []
             for _ in range(group):
                 perm = (device_permutation(gen, g, bs, self.device) if device_shuffle
                         else host_permutation(rng, g, bs, self.device))
-                losses.append(train_epoch(train_step, data, perm))
+                losses.append(train_epoch(train_step, data, perm, self.rows))
             esum, count = val_eval(eval_step)
             # the group's one host sync
             fetched = torch.cat([torch.stack(losses).flatten(), esum, count[None]]).cpu().numpy()
@@ -344,9 +441,10 @@ class QM8Runner:
             epoch_time, gps = group_time / group, group * steps * bs / group_time
             per_epoch = fetched[: group * steps].reshape(group, steps).mean(1)
             val_mae = self._mae(fetched[group * steps : -1], fetched[-1])
+            comm = self._comm_since(comm0)
             for i, lv in enumerate(per_epoch):
                 self.metrics.log("epoch", epoch=epoch + i, loss=float(lv),
-                                 epoch_time_s=epoch_time, graphs_per_sec=gps)
+                                 epoch_time_s=epoch_time, graphs_per_sec=gps, **comm)
             epoch += group
             self.log.info(
                 "epoch %d | loss %.6f | val MAE %.6f | %.0f graphs/s | %.3fs/epoch | lr %.2e",
@@ -358,11 +456,10 @@ class QM8Runner:
             self._saved(epoch - 1, state)
 
         def test_mae() -> np.ndarray:
-            test_eval = ResidentEval(device_dataset(self.datasets["test"], self.device), bs)
-            esum, count = test_eval(eval_step)
+            esum, count = self._resident_eval("test")(eval_step)
             return self._mae(esum.cpu().numpy(), float(count))
 
-        return self._tested(best_val, test_mae)
+        return self._tested(best_val, test_mae, optimizer)
 
     def _train_per_step(self) -> dict:
         """Batches streamed from the host, one step at a time."""
@@ -381,8 +478,10 @@ class QM8Runner:
         max_epoch = int(tcfg.get("max_epoch", 10))
         for epoch in range(start_epoch, max_epoch):
             t0 = time.perf_counter()
+            comm0 = self._comm_stats()
             for it, (batch, valid) in enumerate(prefetch_to_device(loader.epoch(), self.device)):
-                loss = train_step(batch, valid)
+                # drop_last: every batch is whole, its valid graphs the batch size
+                loss = train_step(batch, valid, self.batch_size)
                 if (it + 1) % display_iter == 0 or it + 1 == steps:
                     lv = float(loss)  # waits for the step: only at display points
                     step = scheduler.last_epoch
@@ -392,7 +491,8 @@ class QM8Runner:
             _sync(self.device)
             epoch_time = time.perf_counter() - t0
             gps = steps * int(tcfg["batch_size"]) / epoch_time
-            self.metrics.log("epoch", epoch=epoch, epoch_time_s=epoch_time, graphs_per_sec=gps)
+            self.metrics.log("epoch", epoch=epoch, epoch_time_s=epoch_time, graphs_per_sec=gps,
+                             **self._comm_since(comm0))
             state = self._state(optimizer, scheduler)
             if (epoch + 1) % valid_every == 0 or epoch == max_epoch - 1:
                 val_mae = self._evaluate(eval_step, "val")
@@ -400,7 +500,7 @@ class QM8Runner:
                               epoch, float(val_mae.mean()), gps, epoch_time)
                 best_val = self._validated(epoch, val_mae, best_val, state)
             self._saved(epoch, state)
-        return self._tested(best_val, lambda: self._evaluate(eval_step, "test"))
+        return self._tested(best_val, lambda: self._evaluate(eval_step, "test"), optimizer)
 
     # ---------------------------------------------------------------- test
     def test(self) -> dict:

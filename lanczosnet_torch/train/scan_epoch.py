@@ -12,6 +12,11 @@ batches are gathered once.
 Where the JAX package compiles a whole group of epochs into one
 ``lax.scan`` program, the port launches each step's kernels from
 Python; the host never waits for the device inside a group.
+
+Data parallelism: every rank holds the whole split, draws the same
+permutation and takes its block of each batch (its columns of the
+``[steps, B]`` table, as the JAX runner's ``P(None, "data")`` places
+it); validation sums and counts are summed over the ``dp`` ranks.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from lanczosnet_torch.core.graph_batch import GraphBatch
 from lanczosnet_torch.data.dataset import PackedDataset
+from lanczosnet_torch.parallel.comm import Comm
 
 # the device shuffle stream's seed is the run's seed plus this, as in
 # lanczosnet_tpu/train/runner.py
@@ -89,15 +95,20 @@ def host_permutation(
 
 
 def train_epoch(
-    train_step: Callable[[GraphBatch, torch.Tensor], torch.Tensor],
+    train_step: Callable[..., torch.Tensor],
     data: GraphBatch,
     perm: torch.Tensor,
+    rows: slice = slice(None),
 ) -> torch.Tensor:
-    """Run one epoch's steps over ``shuffle_epoch(data, perm)`` → the
-    losses ``[steps]``, on the device and not waited for."""
+    """Run one epoch's steps over ``shuffle_epoch(data, perm[:, rows])``
+    (``rows``: a data-parallel rank's block of each batch) → the losses
+    ``[steps]``, on the device and not waited for."""
+    batch_size = perm.shape[1]  # every graph of a batch is real
+    perm = perm[:, rows]
     batches = shuffle_epoch(data, perm)
     valid = torch.ones(perm.shape[1], device=perm.device)
-    return torch.stack([train_step(batch_at(batches, s), valid) for s in range(perm.shape[0])])
+    return torch.stack([train_step(batch_at(batches, s), valid, batch_size)
+                        for s in range(perm.shape[0])])
 
 
 def eval_tables(num_graphs: int, batch_size: int, device: torch.device):
@@ -115,11 +126,15 @@ def eval_tables(num_graphs: int, batch_size: int, device: torch.device):
 class ResidentEval:
     """Per-task |err| sums and the count over a resident split, its
     batches gathered once: ``(eval_step) → (esum [T], count)`` on the
-    device."""
+    device. A data-parallel rank evaluates its ``rows`` of each batch and
+    the sums are summed over ``comm``."""
 
-    def __init__(self, data: GraphBatch, batch_size: int):
-        self.idx, self.valid = eval_tables(data.mask.shape[0], batch_size, data.mask.device)
+    def __init__(self, data: GraphBatch, batch_size: int, rows: slice = slice(None),
+                 comm: Optional[Comm] = None):
+        idx, valid = eval_tables(data.mask.shape[0], batch_size, data.mask.device)
+        self.idx, self.valid = idx[:, rows], valid[:, rows]
         self.batches = shuffle_epoch(data, self.idx)
+        self.comm = comm if comm is not None and comm.size > 1 else None
 
     def __call__(self, eval_step) -> tuple[torch.Tensor, torch.Tensor]:
         esum: Optional[torch.Tensor] = None
@@ -127,4 +142,7 @@ class ResidentEval:
         for s in range(self.idx.shape[0]):
             e, c = eval_step(batch_at(self.batches, s), self.valid[s])
             esum, count = (e, c) if esum is None else (esum + e, count + c)
+        if self.comm is not None:
+            summed = self.comm.all_reduce(torch.cat([esum, count[None]]))
+            esum, count = summed[:-1], summed[-1]
         return esum, count

@@ -5,23 +5,55 @@ ghost-aware masked MAE on standardized labels: a tail batch is padded
 with ghost graphs that its ``valid`` vector weights out, so every step
 has one shape. A train step returns its loss as a device tensor and
 waits for nothing; the caller fetches losses when it needs them.
+
+Data and tensor parallelism (``train.num_devices``, ``train.tp``): each
+data-parallel rank holds a block of the batch and its loss is its share
+of the batch's (its error sum over the valid count of the whole batch,
+the sum over the ``dp`` ranks); the gradients and the loss get one flat
+all-reduce over ``dp`` a step, as ``SparseCitationRunner``'s do. Under
+``tp`` the gradient of a cut leaf is its block's (``parallel/tensor.py``)
+and the global norm of the clip sums the blocks' squares over ``tp``
+and counts each replicated leaf once.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from lanczosnet_torch.core.graph_batch import GraphBatch
 from lanczosnet_torch.ops.precision import bf16_f32_accumulation
+from lanczosnet_torch.parallel.comm import Comm
+from lanczosnet_torch.parallel.tensor import TensorParallel
 
 
-def weighted_mae(pred: torch.Tensor, label: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """MAE over (valid graphs × tasks); ghost graphs contribute 0."""
+def weighted_mae(pred: torch.Tensor, label: torch.Tensor, valid: torch.Tensor,
+                 count: Optional[float] = None) -> torch.Tensor:
+    """MAE over (valid graphs × tasks); ghost graphs contribute 0.
+    ``count``: the valid graphs of the whole batch where ``pred`` holds a
+    block of it (default: ``valid.sum()``)."""
     err = (pred - label).abs() * valid[:, None]
-    denom = (valid.sum() * label.shape[-1]).clamp_min(1.0)
+    n = valid.sum() if count is None else valid.new_tensor(float(count))
+    denom = (n * label.shape[-1]).clamp_min(1.0)
     return err.sum() / denom
+
+
+def clip_grad_norm(params: Sequence[torch.Tensor], max_norm: float, cut: Sequence[bool],
+                   tp_comm: Comm) -> torch.Tensor:
+    """``clip_grad_norm_`` over a tensor-parallel model: the squares of
+    the cut leaves' blocks summed over ``tp``, each replicated leaf
+    counted once; every rank scales its gradients by the same factor.
+    → the global norm."""
+    grads = [p.grad for p in params]
+    zero = torch.zeros((), device=grads[0].device)
+    sq = [sum((g.float().pow(2).sum() for g, c in zip(grads, cut) if c == part), zero)
+          for part in (True, False)]
+    norm = (tp_comm.all_reduce(sq[0]) + sq[1]).sqrt()
+    coef = (max_norm / (norm + 1e-6)).clamp(max=1.0)
+    for g in grads:
+        g.mul_(coef.to(g.dtype))
+    return norm
 
 
 def make_train_step(
@@ -29,25 +61,48 @@ def make_train_step(
     optimizer: torch.optim.Optimizer,
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
     grad_clip: Optional[float] = None,
-) -> Callable[[GraphBatch, torch.Tensor], torch.Tensor]:
-    """``(batch, valid) → loss``: forward in training mode (dropout on),
-    backward, the gradient clipped to the global norm ``grad_clip``
-    before the optimizer adds its weight decay, the optimizer step and
-    one step of the schedule. The forward and the backward run in
-    ``bf16_f32_accumulation``."""
+    dp_comm: Optional[Comm] = None,
+    tensor_parallel: Optional[TensorParallel] = None,
+) -> Callable[..., torch.Tensor]:
+    """``(batch, valid, count=None) → loss``: forward in training mode
+    (dropout on), backward, the gradient clipped to the global norm
+    ``grad_clip`` before the optimizer adds its weight decay, the
+    optimizer step and one step of the schedule. The forward and the
+    backward run in ``bf16_f32_accumulation``.
 
-    def train_step(batch: GraphBatch, valid: torch.Tensor) -> torch.Tensor:
+    ``dp_comm`` (more than one rank): ``batch`` is this rank's block,
+    ``count`` the valid graphs of the whole batch (the caller knows it
+    without a collective: the batch size, where no graph is a ghost),
+    and the loss returned is the whole batch's. ``tensor_parallel``: the
+    model is cut over its ``tp`` group; the optimizer holds its
+    ``parameters()``."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    dp = dp_comm if dp_comm is not None and dp_comm.size > 1 else None
+
+    def train_step(batch: GraphBatch, valid: torch.Tensor,
+                   count: Optional[float] = None) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        if dp is not None and count is None:
+            raise ValueError("a data-parallel step needs the whole batch's valid count")
         with bf16_f32_accumulation():
-            loss = weighted_mae(model(batch), batch.label, valid)
+            loss = weighted_mae(model(batch), batch.label, valid, count)
             loss.backward()
-        if grad_clip:
+        loss = loss.detach()
+        if dp is not None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            *summed, loss = dp.all_reduce_flat([*grads, loss.reshape(1)])
+            for p, g in zip(params, summed):
+                p.grad = g
+            loss = loss[0]
+        if grad_clip and tensor_parallel is not None:
+            clip_grad_norm(params, float(grad_clip), tensor_parallel.cut(), tensor_parallel.comm)
+        elif grad_clip:
             torch.nn.utils.clip_grad_norm_(model.parameters(), float(grad_clip))
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        return loss.detach()
+        return loss
 
     return train_step
 

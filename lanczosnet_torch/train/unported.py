@@ -3,10 +3,11 @@
 The three runners check a config against one table before they build
 anything, so an option the port would ignore raises instead, naming the
 ROADMAP item that ports it. ``train.prng_impl`` is accepted: it picks
-JAX's random-bit generator and has no torch counterpart. Sharding
-(``train.num_devices`` > 1, ``train.shard``) is ported for
-``SparseCitationRunner`` only (A11); the QM8 and dense citation runners'
-data and tensor parallelism is A11b.
+JAX's random-bit generator and has no torch counterpart. Sharding is
+ported for ``SparseCitationRunner`` (``train.num_devices`` > 1,
+``train.shard``; A11) and for ``QM8Runner`` (``train.num_devices`` > 1,
+``train.tp`` > 1; the first half of A11b); the dense citation runner's
+node-sharding is the rest of A11b.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from typing import Mapping, Optional
 NOT_PORTED = (
     ("dataset", "buckets", bool, "A12 (data/buckets.py)", ()),
     ("train", "bucket_pair", bool, "A12 (data/buckets.py)", ()),
-    ("train", "tp", lambda v: int(v) > 1, "A11b", ()),
-    ("train", "num_devices", lambda v: int(v) > 1, "A11b", ("SparseCitationRunner",)),
+    ("train", "tp", lambda v: int(v) > 1, "A11b", ("QM8Runner",)),
+    ("train", "num_devices", lambda v: int(v) > 1, "A11b",
+     ("SparseCitationRunner", "QM8Runner")),
     ("train", "shard", bool, "A11b", ("SparseCitationRunner",)),
     ("train", "profile", bool, "A12", ()),
     ("train", "tensorboard", bool, "A12", ()),

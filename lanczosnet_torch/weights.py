@@ -58,6 +58,21 @@ class _Leaves:
             raise KeyError(f"flax leaves not mapped: {names}")
 
 
+def flax_transposed(model: torch.nn.Module) -> dict[str, bool]:
+    """For each parameter of a port model, by name: True where the map
+    transposes its flax leaf (a Dense ``kernel [in, out]`` that became a
+    ``Linear.weight [out, in]``, ``_linear``), False where the flax leaf
+    keeps its layout (biases, the embedding table, the filter bank,
+    MPNN's raw matrices). ``parallel/tensor.py`` states JAX's sharding
+    rule on the flax shapes through it."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name, _ in mod.named_parameters(recurse=False):
+            full = f"{prefix}.{name}" if prefix else name
+            out[full] = isinstance(mod, torch.nn.Linear) and name == "weight"
+    return out
+
+
 def _linear(out: dict, leaves: _Leaves, prefix: str, *path: str, bias: bool = True) -> None:
     out[f"{prefix}.weight"] = leaves.take(*path, "kernel").T.contiguous()
     if bias:

@@ -30,6 +30,9 @@ gives the CPU's eval logits and gradients on the card (1e-4); the 16-bit
 sparse scatters stay within a bfloat16 ulp of the CPU's; GPNN's dense
 partition launches the streamed kernel and equals the CPU's on separated
 clusters; ``remat: layers`` gives the loss of no remat (1e-5 relative).
+Two steps of the full-width flagship on four ranks of the card (dp=2 ×
+tp=2, gloo) give one device's losses and parameters, and each rank holds
+the rule's share of the parameters and Adam moments.
 """
 
 import copy
@@ -627,3 +630,47 @@ def test_a_ring_step_holds_less_than_a_node_sharded_one(card, tmp_path):
         assert res["nodes"]["device"].startswith("cuda")
         assert np.isfinite(res["nodes"]["loss"]) and np.isfinite(res["nodes_ring"]["loss"])
         assert res["nodes_ring"]["peak_mb"] < res["nodes"]["peak_mb"]
+
+
+def test_a_dp2_tp2_step_on_the_card_matches_one_device(card, tmp_path):
+    """Two Adam steps of the full-width flagship (dropout 0.1) on four
+    ranks sharing the card over gloo, a dp=2 × tp=2 mesh, against one
+    device on the same batch, weights and masks: losses 1e-5 relative,
+    the second step's gradients 1e-4 of each parameter's largest (the
+    parameters themselves are not compared: Adam's step divides by
+    sqrt(v) + 1e-8, so where a gradient is near zero its rounding, which
+    differs between the card's GEMMs of two shapes, decides the step);
+    each rank's parameter and moment bytes are those the rule predicts
+    (half of each cut leaf's, all of the others')."""
+    from lanczosnet_torch.parallel import multihost
+    import torch_rank_workers as workers
+
+    cfg = loads((Path(TESTS).parent / "configs" / "qm8_lanczos_net.yaml").read_text())
+    ds = pack_dataset(synthetic_qm8_graphs(64, seed=3), n_max=32, num_eig_vec=20,
+                      standardize=True, device=card)
+    model_cfg = {**cfg["model"], "num_atom": 8, "num_task": ds.label.shape[-1]}
+    model = build_model(model_cfg)
+    model.init_weights(torch.Generator().manual_seed(1))
+    fields = ("atom_type", "node_feat", "ops", "mask", "label", "ritz_val", "ritz_vec")
+    case = {"key": "step", "kind": "train", "mesh": (2, 2), "model": model_cfg,
+            "weights": model.state_dict(), "batch": {f: getattr(ds, f) for f in fields},
+            "valid": np.ones(64, np.float32), "train": {"optimizer": "Adam", "lr": 1e-3},
+            "steps": 2, "seed": 5, "device": "cuda"}
+    torch.save({"cases": [case]}, tmp_path / "spec.pt")
+    out = tmp_path / "out"
+    out.mkdir()
+    code = multihost.launch(4, "torch_rank_workers:mesh_cases",
+                            [str(tmp_path / "spec.pt"), str(out)], store_dir=tmp_path,
+                            threads=2, pythonpath=[TESTS], timeout=600)
+    assert code == 0
+    one = workers.train_case(case)
+    for res in workers.read_ranks(out, 4):
+        assert res["world"]["device"].startswith("cuda")
+        got = res["step"]
+        for a, b in zip(got["losses"], one["losses"]):
+            assert a == pytest.approx(b, rel=1e-5)
+        for name, want in one["grads"].items():
+            want = workers.as_numpy(want)
+            np.testing.assert_allclose(workers.as_numpy(got["grads"][name]), want, rtol=0,
+                                       atol=1e-4 * np.abs(want).max(), err_msg=name)
+        assert got["state_bytes"] == got["predicted_state_bytes"] < one["state_bytes"]

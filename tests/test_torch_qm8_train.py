@@ -426,8 +426,15 @@ def test_runner_paths_agree_and_device_shuffle_trains(tmp_path, pack_cache):
      ("train", "profile", True, "A12"), ("train", "tensorboard", True, "A12")],
 )
 def test_refused_options_name_their_roadmap_item(tmp_path, section, key, value, item):
+    """``train.tp`` and ``train.num_devices`` run since A11b's first half
+    (``tests/test_torch_tensor_parallel.py``): outside a process group of
+    the mesh's size they raise; the other options name their item."""
     cfg = tiny_config(tmp_path / "run")
     cfg[section] = {**cfg[section], key: value}
+    if key in ("tp", "num_devices"):
+        with pytest.raises(RuntimeError, match="not inside a process group"):
+            QM8Runner(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"{section}.{key}.*{item}"):
         QM8Runner(cfg, device="cpu")
 

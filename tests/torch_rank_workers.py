@@ -236,3 +236,168 @@ def ring_memory(out_dir: str, num_nodes: int) -> int:
         torch.cuda.empty_cache()
     torch.save(out, Path(out_dir) / f"rank{world.rank}.pt")
     return 0
+
+
+# ---------------------------------------------------------------- the QM8 mesh
+def _mesh_parts(layout):
+    """(d, dp, dp_comm) of a layout; one device where None."""
+    return (0, 1, None) if layout is None else (layout.d, layout.dp, layout.dp_comm)
+
+
+def _batch_rows(arrays: dict, rows: slice, device):
+    """A ``GraphBatch`` of ``rows`` of the numpy ``arrays`` on ``device``."""
+    from lanczosnet_torch.core.graph_batch import GraphBatch
+
+    return GraphBatch(**{k: None if v is None else torch.from_numpy(np.array(v[rows])).to(device)
+                         for k, v in arrays.items()})
+
+
+def train_case(case: dict, layout=None) -> dict:
+    """A case's steps (``model``, ``weights``, ``batch`` arrays, ``valid``,
+    ``train``, ``steps``, dropout ``seed``; ``device``, the CPU where not
+    named) on this rank's block of the batch and of the model, or on one
+    device where ``layout`` is None:
+    the losses, the parameters and gradients made whole, the replicated
+    leaves as this rank holds them, the state bytes measured and
+    predicted."""
+    from lanczosnet_torch.models import build_model
+    from lanczosnet_torch.models.base import set_dropout_generator
+    from lanczosnet_torch.parallel import mesh
+    from lanczosnet_torch.parallel.tensor import (
+        TensorParallel,
+        measured_state_bytes,
+        predicted_state_bytes,
+        state_plan,
+    )
+    from lanczosnet_torch.train.optim import build_optimizer
+    from lanczosnet_torch.train.step import make_train_step
+
+    d, dp, dp_comm = _mesh_parts(layout)
+    tp = 1 if layout is None else layout.tp
+    dev = torch.device(case.get("device", "cpu"))
+    model = build_model(case["model"])
+    model.load_state_dict(case["weights"], strict=True)
+    model.to(dev)
+    plan = state_plan(model, tp)
+    parallel = TensorParallel(model, layout.tp_comm) if tp > 1 else None
+    params = list(model.parameters()) if parallel is None else parallel.parameters()
+    set_dropout_generator(model, torch.Generator(dev).manual_seed(case["seed"]), rows=(d, dp))
+    optimizer, scheduler, clip = build_optimizer(params, case["train"], 1)
+    step = make_train_step(model, optimizer, scheduler, clip, dp_comm, parallel)
+    rows = mesh.batch_rows(len(case["valid"]), dp, d)
+    batch = _batch_rows(case["batch"], rows, dev)
+    valid = torch.from_numpy(case["valid"][rows]).to(dev)
+    count = float(case["valid"].sum())
+    losses = [float(step(batch, valid, count)) for _ in range(case["steps"])]
+    grads = [p.grad for p in params]
+    out = {"losses": losses,
+           "state_bytes": measured_state_bytes(params, optimizer),
+           "predicted_state_bytes": predicted_state_bytes(plan, tp)}
+    if parallel is None:
+        names = [n for n, _ in model.named_parameters()]
+        out["params"] = {k: v.clone() for k, v in model.state_dict().items()}
+        out["grads"] = dict(zip(names, grads))
+    else:
+        out["params"] = parallel.full_state_dict()
+        out["grads"] = parallel.full(grads)
+        out["replicated"] = {leaf.name: p.detach().clone()
+                             for leaf, p in zip(parallel.plan, params) if leaf.axis is None}
+        out["cut"] = sorted(leaf.name for leaf in parallel.plan if leaf.axis is not None)
+    return out
+
+
+def resident_case(case: dict, layout=None) -> dict:
+    """Resident epochs with the device shuffle (``epochs``, batch
+    ``batch_size``) over a packed ``split``, then the resident
+    validation sums, on this rank's block of each batch or on one
+    device: the losses, the parameters, the sums and the count."""
+    from lanczosnet_torch.models import build_model
+    from lanczosnet_torch.models.base import set_dropout_generator
+    from lanczosnet_torch.parallel import mesh
+    from lanczosnet_torch.train.optim import build_optimizer
+    from lanczosnet_torch.train.scan_epoch import (
+        ResidentEval,
+        device_dataset,
+        device_permutation,
+        train_epoch,
+    )
+    from lanczosnet_torch.train.step import make_eval_step, make_train_step
+
+    d, dp, dp_comm = _mesh_parts(layout)
+    cpu = torch.device("cpu")
+    bs = case["batch_size"]
+    rows = mesh.batch_rows(bs, dp, d)
+    model = build_model(case["model"])
+    model.load_state_dict(case["weights"], strict=True)
+    set_dropout_generator(model, torch.Generator().manual_seed(case["seed"]), rows=(d, dp))
+    optimizer, scheduler, clip = build_optimizer(model.parameters(), case["train"], 1)
+    step = make_train_step(model, optimizer, scheduler, clip, dp_comm)
+    data = device_dataset(case["split"], cpu)
+    gen = torch.Generator().manual_seed(case["seed"] + 1)
+    losses = [train_epoch(step, data, device_permutation(gen, len(case["split"]), bs, cpu), rows)
+              for _ in range(case["epochs"])]
+    esum, count = ResidentEval(data, bs, rows, dp_comm)(make_eval_step(model))
+    return {"losses": torch.cat(losses), "params": model.state_dict(), "esum": esum,
+            "count": float(count)}
+
+
+def fused_channel_case(case: dict, layout=None) -> dict:
+    """``FusedChannelDense`` (which no model uses) on ``h`` and ``stack``:
+    its output and the gradients of both inputs and of its weight."""
+    from lanczosnet_torch.models.lanczos_net import FusedChannelDense
+    from lanczosnet_torch.parallel.tensor import TensorParallel
+
+    layer = FusedChannelDense(*case["dims"])
+    layer.load_state_dict(case["weights"])
+    parallel = None if layout is None else TensorParallel(layer, layout.tp_comm)
+    h = torch.from_numpy(case["h"]).requires_grad_()
+    stack = torch.from_numpy(case["stack"]).requires_grad_()
+    out = layer(h, stack)
+    out.backward(torch.from_numpy(case["cotangent"]))
+    params = list(layer.parameters()) if parallel is None else parallel.parameters()
+    grads = [p.grad for p in params]
+    return {"out": out.detach(), "h_grad": h.grad, "stack_grad": stack.grad,
+            "grads": (dict(zip(["weight", "bias"], grads)) if parallel is None
+                      else parallel.full(grads))}
+
+
+CASES = {"train": train_case, "resident": resident_case, "fused": fused_channel_case}
+
+
+def mesh_cases(spec_path: str, out_dir: str) -> int:
+    """Each case of the spec (``{"dp", "tp", "cases"}``) on this rank's
+    place in the mesh; then, where the spec names ``cycle`` (a config
+    file), the runner's train, ``-t`` and resume as ``cli.run`` does them
+    in each rank."""
+    from lanczosnet_torch.parallel import multihost
+
+    spec = torch.load(spec_path, weights_only=False)
+    world = multihost.world()
+    out = {}
+    for case in spec["cases"]:
+        layout = multihost.mesh2d(*case["mesh"])
+        out[case["key"]] = CASES[case["kind"]](case, layout)
+    out["world"] = world.describe()
+    if spec.get("cycle"):
+        out["cycle"] = qm8_cycle(spec["cycle"])
+    torch.save(out, Path(out_dir) / f"rank{world.rank}.pt")
+    return 0
+
+
+def qm8_cycle(config_path: str) -> dict:
+    """Train the QM8 config, ``-t`` its best checkpoint, train one more
+    epoch from its latest snapshot, as ``cli.run`` does in each rank; the
+    checkpoint files each rank wrote."""
+    from lanczosnet_torch.utils.config import AttrDict, loads
+
+    writes = []
+    _record_writes(writes)
+    base = AttrDict.convert(loads(Path(config_path).read_text()))
+    codes = {"train": cli.run(base, False, "INFO", "cpu")}
+    best = str(Path(base.save_dir) / "checkpoints" / "best.pt")
+    tested = AttrDict.convert({**base, "test": {"test_model": best}})
+    codes["test"] = cli.run(tested, True, "INFO", "cpu")
+    resumed = AttrDict.convert({**base, "train": {**base.train, "is_resume": True,
+                                                  "max_epoch": base.train.max_epoch + 1}})
+    codes["resume"] = cli.run(resumed, False, "INFO", "cpu")
+    return {"codes": codes, "writes": [path for path, _ in writes]}
