@@ -105,6 +105,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Citeseer) equal the plain version's (0.0), Pubmed's (N=19717) take the
    plain version by shape; GPNN's partition of Pubmed on the card agrees
    with the CPU's, up to relabelling, on at least 97% of the nodes.
+   Each run's peak device memory is kept for the next phase.
+10b. node_sharded_citation: the dense citation runner's node-sharding,
+   4 ranks sharing the card over gloo, each run through
+   ``python -m lanczosnet_torch.cli`` from a copy of the config with
+   ``train.num_devices: 4``: ``configs/cora_ada_lanczos_net.yaml`` at
+   full width cut to 12 epochs (B2 in every forward of every rank, on the
+   learned operator gathered from the ranks' rows), then in its ranks
+   ``-t`` on its best checkpoint, B2 against its plain version on the
+   gathered learned operator (rank 0, 0.0), and
+   ``configs/cora_lanczos_net.yaml`` trained 2 epochs (rank 0's pack runs
+   B2; its Ritz pairs 0.0 from the plain version's on the gathered
+   operator); ``-t`` on one device from the same checkpoint (the ranks'
+   test accuracy and the run's within 1e-6) and the first step on one
+   device with the same weights and dropout masks (1e-5 relative); then
+   ``configs/pubmed_lanczos_net.yaml`` at full width cut to 12 epochs
+   (N=19717 padded to 19720, 4,930 rows a rank), whose per-rank peak
+   must stay under half of the one-device run's peak of the phase
+   before. Gates: every rank on ``cuda:0``, losses falling, B2 launched
+   in every forward of every rank. Per run: step ms, the comm layer's
+   share, per-rank peak GB and host RSS, rank 0's set-up seconds.
 11. sparse_citation: the twelve single-device ``SparseCitationRunner``
    configs (``configs/pubmed_sparse_*.yaml``, ``million_sparse_gcn_wide``,
    ``ten_million_sparse_gcn``, ``ten_million_sparse_lanczos_net``) at
@@ -159,7 +179,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    front, the native front, the served artifact and the QM8 mesh runs'
    packs; it runs behind the custom operator
    ``lanczosnet::lanczos_tridiag_resid``; the streamed kernel's by path:
-   the Cora AdaLanczosNet run and the dense citation configs).
+   the Cora AdaLanczosNet run, the dense citation configs and the
+   node-sharded ones).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1770,6 +1791,7 @@ def dense_citation_run(name: str, tmp: Path) -> dict:
     out = {"config": name, "cut": cut, "nodes": batch.n_max, "seconds": wall,
            "train_ce": losses, "test_acc": trained, "retested_acc": tested,
            "stream_launches": stream, "plain_routes": routes,
+           "step_ms": [1e3 * r["step_seconds"] for r in recs if r["event"] == "epoch"],
            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20}
     if len(losses) != DENSE_CITATION_EPOCHS or not np.isfinite(losses).all():
         raise SmokeFailure(f"{name}: losses are not {DENSE_CITATION_EPOCHS} finite numbers: {losses}")
@@ -1802,15 +1824,16 @@ def dense_citation_run(name: str, tmp: Path) -> dict:
     return out
 
 
-def phase_dense_citation(smi: str, tmp: Path) -> int:
-    """The eight dense citation configs through the CLI. → the streamed
-    kernel's launches in their runs."""
-    launches = 0
+def phase_dense_citation(smi: str, tmp: Path) -> tuple[int, dict]:
+    """The eight dense citation configs through the CLI. → (the streamed
+    kernel's launches in their runs, each run's JSON line's fields)."""
+    launches, runs = 0, {}
     for name in DENSE_CITATION_CONFIGS:
         out = dense_citation_run(name, tmp / name)
         launches += out["stream_launches"]
+        runs[name] = out
         emit("dense_citation", **out, nvidia_smi=smi)
-    return launches
+    return launches, runs
 
 
 def sparse_citation_run(name: str, tmp: Path, graph: dict, graph_s: float, dev, smi: str,
@@ -2541,6 +2564,257 @@ def qm8_parallel_runs(dev, smi: str, tmp: Path, device_arg) -> int:
     return launches
 
 
+# the node_sharded_citation phase: the dense citation runner's node rows
+# over 4 ranks sharing the card over gloo; the depth cuts (of max_epoch
+# 200 and 300: the dense_citation phase's 12 epochs, since with dropout
+# 0.5 both losses rise over the first epochs); the Cora runs' checks and
+# the Pubmed run's memory
+NODE_SHARDED_RANKS = 4
+NODE_SHARDED_RUNS = {"cora_ada_lanczos_net": DENSE_CITATION_EPOCHS,
+                     "pubmed_lanczos_net": DENSE_CITATION_EPOCHS}
+NODE_SHARDED_CHECKED = "cora_ada_lanczos_net"  # -t in the ranks and on one device, first step
+NODE_SHARDED_PACKED = ("cora_lanczos_net", 2)  # trained in the follow-ups: rank 0's packs run B2
+NODE_SHARDED_MEMORY = "pubmed_lanczos_net"  # its per-rank peak against one device's
+NODE_SHARDED_FIRST_STEP_RTOL = 1e-5
+# every epoch's loss against the dense_citation phase's one-device run of
+# the same cut config (the same weights, dropout masks and seed)
+NODE_SHARDED_EPOCH_RTOL = 1e-5
+# what rank 0 may hold after its set-up beyond the most another rank
+# holds: its piece alone, not the whole graph it packed and cut
+NODE_SHARDED_RANK0_MARGIN_MB = 64.0
+NODE_SHARDED_RETEST_TOL = 1e-6
+NODE_SHARDED_PEAK_SHARE = 0.5  # a rank's peak against one device's, at most
+
+
+def node_sharded_config(name: str, tmp: Path, epochs: int, ranks: int) -> tuple[Path, dict, dict]:
+    """``configs/<name>.yaml`` cut to ``epochs`` with ``train.num_devices:
+    ranks``, written to ``tmp`` → (path, config, cuts)."""
+    cfg, cut = citation_config_cut(name, epochs)
+    cfg["exp_dir"] = str(tmp / "exp")
+    cut["train.num_devices"] = [cfg["train"].get("num_devices"), ranks]
+    cfg["train"]["num_devices"] = ranks
+    tmp.mkdir(parents=True)
+    path = tmp / f"{name}.yaml"
+    path.write_text(config_io.dumps(cfg))
+    return path, cfg, cut
+
+
+def node_sharded_train(name: str, tmp: Path, device_arg) -> dict:
+    """Train ``configs/<name>.yaml`` (cut) on ``NODE_SHARDED_RANKS`` ranks
+    through ``python -m lanczosnet_torch.cli`` → its JSON line's fields;
+    raises on a gate."""
+    d = NODE_SHARDED_RANKS
+    path, cfg, cut = node_sharded_config(name, tmp, NODE_SHARDED_RUNS[name], d)
+    t0 = time.perf_counter()
+    cli_process(path, device_arg)
+    wall = time.perf_counter() - t0
+    run = only_run_dir(tmp / "exp", "_train")
+    recs = [read_metrics(run, r) for r in range(d)]
+    setups = [next(e for e in rec if e["event"] == "setup") for rec in recs]
+    ends = [[e for e in rec if e["event"] == "test"][-1] for rec in recs]
+    epochs = [[e for e in rec if e["event"] == "epoch"] for rec in recs]
+    losses = [e["loss"] for e in epochs[0]]
+    steps = [e["step_seconds"] for e in epochs[0]]
+    comm_s = [sum(e["comm"]["staging_s"] + e["comm"]["transport_s"] for e in ep) for ep in epochs]
+    out = {"config": name, "cut": cut, "ranks": d, "backend": setups[0]["backend"],
+           "ranks_per_card": setups[0]["ranks_per_card"],
+           "rank_devices": [e["device"] for e in setups], "nodes": setups[0]["n_pad"],
+           "rows_per_rank": [e["rows"] for e in setups], "cli_wall_s": wall,
+           "train_ce": losses, "val_acc": [e["val_acc"] for e in recs[0] if e["event"] == "train"],
+           "test_acc": ends[0]["acc"], "step_ms": [1e3 * x for x in steps],
+           "step_ms_last": 1e3 * steps[-1],
+           # the comm layer's staging and timed transport over the steps' time
+           "comm_share": [c / sum(e["step_seconds"] for e in ep) for c, ep in zip(comm_s, epochs)],
+           "comm_staged_mb_a_step": sum(e["comm"]["staged_bytes"] for e in epochs[0])
+           / len(epochs[0]) / 2**20,
+           "setup_s_rank0": {k: v for k, v in setups[0].items() if k.endswith("_s")},
+           "peak_gb_per_rank": [e.get("peak_memory_mb", 0.0) / 1024 for e in ends],
+           "setup_peak_gb_per_rank": [e.get("peak_memory_mb", 0.0) / 1024 for e in setups],
+           "setup_held_gb_per_rank": [e.get("memory_mb", 0.0) / 1024 for e in setups],
+           "host_peak_rss_gb_per_rank": [e["host_peak_rss_mb"] / 1024 for e in ends],
+           "stream_launches_per_rank": [e["stream_launches"] for e in ends],
+           "plain_routes_rank0": setups[0]["plain_routes"]}
+    fails = []
+    # rank r on card r % cards: on the one card the script needs, all on cuda:0
+    cards = [f"cuda:{r % max(torch.cuda.device_count(), 1)}" for r in range(d)]
+    if device_arg is None and out["rank_devices"] != cards:
+        fails.append(f"the ranks ran on {out['rank_devices']}, not on {cards}")
+    if len(losses) != NODE_SHARDED_RUNS[name] or not np.isfinite(losses).all():
+        fails.append(f"epoch losses {losses}")
+    elif not losses[-1] < losses[0]:
+        fails.append(f"the loss did not fall: {losses}")
+    held = [e.get("memory_mb", 0.0) for e in setups]
+    if not held[0] <= max(held[1:]) + NODE_SHARDED_RANK0_MARGIN_MB:
+        fails.append(f"rank 0 holds {held[0]} MB after its set-up, the others {held[1:]}")
+    if fails:
+        emit("node_sharded_citation", **out, failed=fails)
+        raise SmokeFailure(f"node_sharded_citation {name}: " + "; ".join(fails))
+    out["run_dir"], out["cfg"] = run, cfg
+    return out
+
+
+def node_sharded_followups(config: str, packed: str, device=None) -> int:
+    """What each rank does after the checked run: ``-t`` on its best
+    checkpoint through ``cli.run`` (in ``<run>_t``); rank 0 holds B2 to
+    its plain version on the learned operator gathered from the ranks'
+    rows; then ``packed`` (a LanczosNet config with ``train.num_devices``,
+    its run directory minted) trains through ``cli.run``, and rank 0
+    holds its packed Ritz pairs to the plain version's on the operator
+    gathered from the ranks' rows. Rank 0 writes what it found to
+    ``<run>_t/followups.json``."""
+    from lanczosnet_torch.core.graph_batch import gather_nodes
+    from lanczosnet_torch.parallel import multihost
+    from lanczosnet_torch.utils.config import AttrDict
+
+    rank = multihost.world().rank
+    base = AttrDict.convert(config_io.loads(Path(config).read_text()))
+    run = Path(base.save_dir)
+    tested = AttrDict.convert({**base, "save_dir": f"{run}_t", "is_test": True,
+                               "test": {"test_model": str(run / "checkpoints" / "best.pt")}})
+    Path(tested.save_dir).mkdir(exist_ok=True)
+    with kept_runners("CitationRunner") as made:
+        codes = [cli.run(tested, True, "INFO", device)]
+    out = {}
+    if codes[0] == 0:
+        model, batch = made[0].model.eval(), made[0].batch
+        with torch.no_grad():
+            h = model.encoder(batch.atom_type, batch.node_feat, batch.mask)
+            s = gather_nodes(model.learned_operator(h, batch), batch.shard).contiguous()
+        if rank == 0:
+            k, mask = model.num_eig_vec, batch.shard.mask
+            got = lanczos_cuda.lanczos_tridiag_cuda_resid(
+                s, mask, k, EPS, impl="plain" if device == "cpu" else "kernel")
+            want = lanczos_tridiag_resid_stream(s, mask, k, EPS)
+            out["b2_gathered_learned_operator_max_abs_err"] = compare_outputs(
+                "node_sharded-gathered-learned-operator-n2708-k20", s, k, got, want)
+        del made[:], model, batch, s
+    lnet = AttrDict.convert(config_io.loads(Path(packed).read_text()))
+    with kept_runners("CitationRunner") as made:
+        codes.append(cli.run(lnet, False, "INFO", device))
+    if codes[1] == 0:
+        batch = made[0].batch
+        with torch.no_grad():
+            s = gather_nodes(batch.ops[:, 0], batch.shard).contiguous()
+            vecs = gather_nodes(batch.ritz_vec, batch.shard)
+        if rank == 0:
+            k = batch.ritz_val.shape[-1]
+            vals, want = batched_lanczos_ritz_dispatch(s, batch.shard.mask, k, impl="plain")
+            out["packed_ritz_max_abs_err_vs_plain"] = max(
+                float((batch.ritz_val - vals).abs().max()), float((vecs - want).abs().max()))
+            out["packed_on_kernel"] = lanczos_cuda.kernel_limit(s.shape[-1], k) is None
+    if rank == 0:
+        out["codes"] = codes
+        (Path(tested.save_dir) / "followups.json").write_text(json.dumps(out))
+    return max(codes)
+
+
+def node_sharded_checks(t: dict, tmp: Path, dev, device_arg) -> dict:
+    """The checked run's follow-ups in its ranks; ``-t`` on one device
+    from the same checkpoint; the first step on one device against the
+    ranks' → fields; raises on a gate."""
+    from lanczosnet_torch.parallel import multihost
+
+    run, cfg = t["run_dir"], t["cfg"]
+    name, epochs = NODE_SHARDED_PACKED
+    packed_path = node_sharded_config(name, tmp / "packed", epochs, NODE_SHARDED_RANKS)[0]
+    packed = config_io.load_config(packed_path)
+    t0 = time.perf_counter()
+    code = multihost.launch(NODE_SHARDED_RANKS, "chip_smoke:node_sharded_followups",
+                            [str(run / "config.yaml"), str(Path(packed.save_dir) / "config.yaml"),
+                             device_arg], device=device_arg, store_dir=tmp,
+                            pythonpath=[Path(__file__).resolve().parent], timeout=600)
+    followup_s = time.perf_counter() - t0
+    if code != 0:
+        raise SmokeFailure(f"node_sharded_citation: the follow-ups in the ranks exited {code}")
+    found = json.loads((Path(f"{run}_t") / "followups.json").read_text())
+    (ranks_acc,) = [e["acc"] for e in read_metrics(Path(f"{run}_t")) if e["event"] == "test"]
+    pack_setup = next(e for e in read_metrics(Path(packed.save_dir)) if e["event"] == "setup")
+
+    best = run / "checkpoints" / "best.pt"
+    one = {**cfg, "exp_dir": str(tmp / "one"), "test": {"test_model": str(best)},
+           "train": {**cfg["train"], "num_devices": 1}}
+    path = tmp / "one_device_test.yaml"
+    path.write_text(config_io.dumps(one))
+    if cli.main(["-c", str(path), "-t", *(["--device", device_arg] if device_arg else [])]) != 0:
+        raise SmokeFailure(f"node_sharded_citation: one-device -t of {best} failed")
+    (one_acc,) = [e["acc"] for e in read_metrics(only_run_dir(tmp / "one", "_test"))
+                  if e["event"] == "test"]
+
+    # the first step on one device, on the same weights and dropout masks
+    runner = CitationRunner({**one, "save_dir": str(tmp / "first_step"), "test": {}}, dev)
+    optimizer, scheduler, clip = build_optimizer(runner.model.parameters(), cfg["train"], 1)
+    step = make_node_train_step(runner.model, optimizer, scheduler, clip)
+    first = float(step(runner.batch, runner.splits["train"]))
+    del runner, step, optimizer
+    rel = abs(t["train_ce"][0] - first) / abs(first)
+    out = {"followups_wall_s": followup_s, "ranks_test_acc": ranks_acc,
+           "one_device_test_acc": one_acc, "first_step_loss_ranks": t["train_ce"][0],
+           "first_step_loss_one_device": first, "first_step_loss_rel": rel,
+           "first_step_rtol": NODE_SHARDED_FIRST_STEP_RTOL, **found,
+           "packed_config": name, "packed_stream_launches_rank0": pack_setup["stream_launches"]}
+    fails = []
+    if max(abs(ranks_acc - one_acc), abs(t["test_acc"] - one_acc)) > NODE_SHARDED_RETEST_TOL:
+        fails.append(f"-t in the ranks {ranks_acc}, on one device {one_acc}, the run's test "
+                     f"accuracy {t['test_acc']}")
+    if not rel <= NODE_SHARDED_FIRST_STEP_RTOL:
+        fails.append(f"the first step is {rel} from one device's loss (relative)")
+    if device_arg is None:
+        if found.get("b2_gathered_learned_operator_max_abs_err") != 0.0:
+            fails.append(f"B2 on the gathered learned operator: {found}")
+        if not (found.get("packed_on_kernel") and pack_setup["stream_launches"] >= 1
+                and found.get("packed_ritz_max_abs_err_vs_plain") == 0.0):
+            fails.append(f"rank 0's pack of {name}: {pack_setup['stream_launches']} B2 launches, "
+                         f"{found}")
+        forwards = 2 * len(t["train_ce"]) + 1  # a train and a val forward an epoch, the test
+        if min(t["stream_launches_per_rank"]) < forwards:
+            fails.append(f"B2 launches a rank {t['stream_launches_per_rank']}, fewer than the "
+                         f"{forwards} forwards")
+    if fails:
+        emit("node_sharded_citation_checks", **out, failed=fails)
+        raise SmokeFailure("node_sharded_citation: " + "; ".join(fails))
+    return out
+
+
+def phase_node_sharded_citation(dev, smi: str, tmp: Path, one_device: dict,
+                                device_arg=None) -> int:
+    """The dense citation runner's node-sharding through the CLI, the
+    ranks sharing the card: ``NODE_SHARDED_RUNS``, the checked run's
+    follow-ups and one-device checks, every run's epoch losses and the
+    memory run's per-rank peak against one device's (``one_device``, the
+    dense_citation phase's runs by config). → B2's launches on this
+    path: every rank's in the checked run, rank 0's in the packed run."""
+    t_phase = time.perf_counter()
+    launches = 0
+    for name in NODE_SHARDED_RUNS:
+        t = node_sharded_train(name, tmp / name, device_arg)
+        if name == NODE_SHARDED_CHECKED:
+            t.update(node_sharded_checks(t, tmp / name, dev, device_arg))
+            launches += sum(t["stream_launches_per_rank"]) + t["packed_stream_launches_rank0"]
+        if name in one_device:
+            want = one_device[name]["train_ce"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(t["train_ce"], want)]
+            t.update(one_device_train_ce=want, epoch_loss_rel=rel,
+                     epoch_loss_rtol=NODE_SHARDED_EPOCH_RTOL)
+            if len(rel) != len(want) or not max(rel) <= NODE_SHARDED_EPOCH_RTOL:
+                fail = f"epoch losses {t['train_ce']} against one device's {want}"
+                emit("node_sharded_citation", **{k: v for k, v in t.items()
+                                                 if k not in ("run_dir", "cfg")}, failed=[fail])
+                raise SmokeFailure(f"node_sharded_citation {name}: {fail}")
+        if name == NODE_SHARDED_MEMORY:
+            one = one_device.get(name, {}).get("peak_memory_mb", 0.0) / 1024
+            t.update(one_device_peak_gb=one, peak_share_limit=NODE_SHARDED_PEAK_SHARE)
+            if device_arg is None and not max(t["peak_gb_per_rank"]) < NODE_SHARDED_PEAK_SHARE * one:
+                raise SmokeFailure(f"node_sharded_citation {name}: per-rank peaks "
+                                   f"{t['peak_gb_per_rank']} GB, one device's {one} GB")
+        emit("node_sharded_citation", **{k: v for k, v in t.items() if k not in ("run_dir", "cfg")},
+             nvidia_smi=smi)
+    emit("node_sharded_citation_phase", stream_launches=launches,
+         phase_s=time.perf_counter() - t_phase, nvidia_smi=smi)
+    if device_arg is None and launches == 0:
+        raise SmokeFailure("node_sharded_citation: no rank launched B2")
+    return launches
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2559,7 +2833,9 @@ def main() -> None:
         stream = phase_stream_kernel(dev, runner, barrier)
         stream_launches = phase_citation_train(runner, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_citation_") as runs:
-        dense_launches = phase_dense_citation(smi, Path(runs) / "dense")
+        dense_launches, dense_runs = phase_dense_citation(smi, Path(runs) / "dense")
+        node_launches = phase_node_sharded_citation(dev, smi, Path(runs) / "node_sharded",
+                                                    dense_runs)
         graphs = phase_sparse_citation(dev, smi, Path(runs) / "sparse")
         phase_sharded_citation(dev, smi, Path(runs) / "sharded", graphs)
         parallel_launches = phase_qm8_parallel(dev, smi, Path(runs) / "qm8_parallel")
@@ -2595,8 +2871,9 @@ def main() -> None:
         "route": "cuda",
         "source": "lanczosnet_torch/csrc/lanczos_stream.cu",
         "replaces": "lanczosnet_tpu/ops/lanczos_pallas.py:184",
-        "launches": stream_launches + dense_launches,
-        "launches_by_path": {"citation_train": stream_launches, "dense_citation": dense_launches},
+        "launches": stream_launches + dense_launches + node_launches,
+        "launches_by_path": {"citation_train": stream_launches, "dense_citation": dense_launches,
+                             "node_sharded_citation": node_launches},
         "max_abs_err": stream["max_abs_err"],
         "ms": ts["kernel_ms"],
         "kernel_ms": ts["kernel_ms"],

@@ -12,8 +12,8 @@ it holds ``config.yaml``, ``run.log``, ``metrics.jsonl`` and
 ``checkpoints/``. The exit code is 0 when the run finished and 1 when it
 raised; the traceback is in the log.
 
-A config with ``train.num_devices: D > 1`` (``SparseCitationRunner``)
-runs on D ranks; a ``QM8Runner`` config with ``train.num_devices`` or
+A config with ``train.num_devices: D > 1`` (``SparseCitationRunner``,
+``CitationRunner``) runs on D ranks; a ``QM8Runner`` config with ``train.num_devices`` or
 ``train.tp`` > 1 on the dp·tp ranks of its mesh
 (``parallel/mesh.py:mesh_shape``: ``num_devices`` defaults to ``tp``,
 and devices past dp·tp are left out, as the JAX runner leaves them).
@@ -96,7 +96,7 @@ def main(argv=None) -> int:
     log = get_logger()
     try:
         refuse_unported(config)
-    except NotImplementedError:
+    except (NotImplementedError, ValueError):
         log.error("run failed:\n%s", traceback.format_exc())
         return 1
     asked = int(config.train.get("num_devices") or 0)

@@ -4,15 +4,40 @@ Counterpart of ``lanczosnet_tpu/core/graph_batch.py``. Graphs are
 padded to one global ``n_max`` and carry a node mask; operators are
 stored ``[B, E, N, N]`` with channel 0 the normalized operator of the
 merged graph and channels ``1..E`` the per-edge-type operators.
+
+A node-sharded batch (one citation graph split by node rows over the
+ranks of a process group, ``train/citation_runner.py``) holds only this
+rank's rows: ``ops [1, E, N/D, N]`` (local rows, every column), every
+node array ``[1, N/D, ...]``, and a ``NodeShard`` with the whole column
+vectors. The models run unchanged on it through three helpers:
+``gather_nodes`` before each contraction over the node axis,
+``node_sum`` for a sum over nodes, and ``row_eye`` for the diagonal of
+the row block; on a batch without a shard each is the one-device form.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from lanczosnet_torch.parallel.comm import Comm, all_gather_rows, psum
+
+
+@dataclass
+class NodeShard:
+    """Where a node-sharded batch's rows sit in the whole graph: they
+    start at row ``offset``; ``comm`` is the group; the column vectors are
+    whole, ``mask [B, n_pad]`` and GPNN's ``cluster [B, n_pad]`` (or
+    None). Each rank's loss is its share of the whole graph's, so every
+    gather's backward is a reduce-scatter and every sum's a sum."""
+
+    comm: Comm
+    offset: int
+    mask: torch.Tensor
+    cluster: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -37,18 +62,64 @@ class GraphBatch:
     ritz_vec: Optional[torch.Tensor] = None
     cluster: Optional[torch.Tensor] = None
     node_label: Optional[torch.Tensor] = None
+    shard: Optional[NodeShard] = field(default=None, repr=False)
 
     @property
     def n_max(self) -> int:
+        """The rows this batch holds (a node-sharded batch: its block)."""
         return self.mask.shape[1]
+
+    @property
+    def row_offset(self) -> int:
+        """The whole graph's row at which this batch's rows start."""
+        return 0 if self.shard is None else self.shard.offset
+
+    @property
+    def n_nodes(self) -> int:
+        """The padded nodes of the whole graph: the operator's columns."""
+        return self.col_mask.shape[1]
+
+    @property
+    def col_mask(self) -> torch.Tensor:
+        """``[B, n_nodes]``: the node mask of every column."""
+        return self.mask if self.shard is None else self.shard.mask
+
+    @property
+    def col_cluster(self) -> Optional[torch.Tensor]:
+        """``[B, n_nodes]``: GPNN's cluster of every column, or None."""
+        return self.cluster if self.shard is None else self.shard.cluster
 
     @property
     def num_ops(self) -> int:
         return self.ops.shape[1]
 
     def pair_mask(self) -> torch.Tensor:
-        """``[B, N, N]`` outer product of the node mask."""
-        return self.mask[:, :, None] * self.mask[:, None, :]
+        """``[B, N, N]`` outer product of the node mask (node-sharded:
+        this block's rows against every column)."""
+        return self.mask[:, :, None] * self.col_mask[:, None, :]
+
+
+def gather_nodes(h: torch.Tensor, shard: Optional[NodeShard]) -> torch.Tensor:
+    """``h [B, rows, ...]`` → every node's ``[B, n_pad, ...]``: the identity
+    without a shard, else the ranks' row blocks in rank order
+    (``all_gather_rows``, whose backward is a reduce-scatter)."""
+    if shard is None:
+        return h
+    return all_gather_rows(h.movedim(1, 0).contiguous(), shard.comm).movedim(0, 1)
+
+
+def node_sum(x: torch.Tensor, shard: Optional[NodeShard]) -> torch.Tensor:
+    """A partial sum over this rank's nodes → the whole graph's (``psum``);
+    the identity without a shard."""
+    return x if shard is None else psum(x, shard.comm)
+
+
+def row_eye(batch: GraphBatch, dtype=torch.float32) -> torch.Tensor:
+    """``[rows, n_nodes]``: the identity's rows that this batch holds (the
+    whole identity without a shard)."""
+    device = batch.mask.device
+    rows = torch.arange(batch.n_max, device=device) + batch.row_offset
+    return (rows[:, None] == torch.arange(batch.n_nodes, device=device)).to(dtype)
 
 
 def pad_graph(

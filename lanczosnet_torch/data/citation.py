@@ -234,6 +234,7 @@ def pack_citation(
     num_eig_vec: int = 0,
     num_cluster: int = 0,
     device: str | torch.device | None = None,
+    spectral_device: str | torch.device | None = None,
 ) -> tuple[GraphBatch, dict]:
     """Citation dict → (B=1 ``GraphBatch``, split masks ``[1, N]`` float
     padded alike), all on ``device`` (a CUDA card unless one is named).
@@ -245,9 +246,12 @@ def pack_citation(
     ``device`` through the Lanczos dispatch (on the card, the CUDA
     kernel the graph's size picks). ``num_cluster > 0`` attaches GPNN's
     partition (``cluster [1, N]``, ``data/partition.py:ritz_partition``,
-    its Lanczos call on ``device`` too).
+    its Lanczos call on ``device`` too). ``spectral_device``, where
+    given, runs those two instead: the node-sharded runner's rank 0
+    packs on the host and moves only channel 0 to its card for them.
     """
     device = resolve_device(device)
+    spectral = device if spectral_device is None else torch.device(spectral_device)
     n = graph["features"].shape[0]
     n_pad = -(-n // pad_to) * pad_to
     feats = np.zeros((1, n_pad, graph["features"].shape[1]), np.float32)
@@ -266,10 +270,13 @@ def pack_citation(
     ritz_val = ritz_vec = None
     if num_eig_vec > 0:
         with torch.no_grad():
-            ritz_val, ritz_vec = batched_lanczos_ritz_dispatch(ops[:, 0], mask_t, num_eig_vec)
+            ritz_val, ritz_vec = batched_lanczos_ritz_dispatch(
+                ops[:, 0].to(spectral), mask_t.to(spectral), num_eig_vec)
+        ritz_val, ritz_vec = ritz_val.to(device), ritz_vec.to(device)
     cluster = None
     if num_cluster > 0:
-        cluster = torch.from_numpy(ritz_partition(ops[0, 0], mask_t[0], num_cluster)[None])
+        cluster = torch.from_numpy(ritz_partition(ops[0, 0].to(spectral), mask_t[0].to(spectral),
+                                                  num_cluster)[None])
 
     batch = GraphBatch(
         atom_type=torch.from_numpy(atom).to(device),

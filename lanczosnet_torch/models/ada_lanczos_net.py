@@ -18,6 +18,14 @@ the learned kernel, the Lanczos call and the Ritz pairs, which stay
 float32; the layer loop then runs as LanczosNet's. ``lanczos_impl`` is
 ``auto`` (the kernel on a CUDA tensor, its plain version on a CPU
 tensor), ``kernel`` or ``plain``.
+
+On a node-sharded batch each rank forms its rows of the learned
+operator (against every node's gathered embedding), gathers the rows
+whole (``all_gather_rows``; 29 MB at Cora) and runs the same Lanczos
+call as one device, so every rank holds the same Ritz pairs and keeps
+its rows of V. Each rank's loss is its share, so the cotangents of the
+gathered operator differ by rank: the gather's backward, a
+reduce-scatter, sums them and hands each rank its rows.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from lanczosnet_torch.core.graph_batch import GraphBatch
+from lanczosnet_torch.core.graph_batch import GraphBatch, gather_nodes, row_eye
 from lanczosnet_torch.models.lanczos_net import LanczosNet
 from lanczosnet_torch.ops.lanczos_cuda import IMPLS, batched_lanczos_ritz_dispatch
 from lanczosnet_torch.ops.normalize import sym_normalize
@@ -92,14 +100,14 @@ class AdaLanczosNet(LanczosNet):
         of the pairwise product."""
         emb = self.kernel_embed(h) * batch.mask[..., None]
         sq = (emb * emb).sum(-1)
-        d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(emb, emb.transpose(1, 2))
+        emb_all, sq_all = gather_nodes(emb, batch.shard), gather_nodes(sq, batch.shard)
+        d2 = sq[:, :, None] + sq_all[:, None, :] - 2.0 * torch.bmm(emb, emb_all.transpose(1, 2))
         kernel = torch.exp(-d2.clamp_min(0.0) / math.sqrt(float(emb.shape[-1])))
         if self.use_graph_support:
-            eye = torch.eye(batch.n_max, dtype=kernel.dtype, device=kernel.device)
-            support = (batch.ops[:, 0] > 0).to(kernel.dtype) + eye
+            support = (batch.ops[:, 0] > 0).to(kernel.dtype) + row_eye(batch, kernel.dtype)
             kernel = kernel * support.clamp_max(1.0)
         kernel = kernel * batch.pair_mask()
-        return sym_normalize(kernel, batch.mask)
+        return sym_normalize(kernel, batch.mask, shard=batch.shard)
 
     def ritz_pairs(self, s_op: torch.Tensor, mask: torch.Tensor):
         """Ritz pairs ``(vals [B,K], vecs [B,N,K])`` of the learned operator."""
@@ -110,5 +118,6 @@ class AdaLanczosNet(LanczosNet):
     def forward(self, batch: GraphBatch) -> torch.Tensor:
         h = self.encoder(batch.atom_type, batch.node_feat, batch.mask)
         s_op = self.learned_operator(h, batch)
-        ritz_val, ritz_vec = self.ritz_pairs(s_op, batch.mask)
+        ritz_val, ritz_vec = self.ritz_pairs(gather_nodes(s_op, batch.shard), batch.col_mask)
+        ritz_vec = ritz_vec.narrow(1, batch.row_offset, batch.n_max)
         return self.propagate(batch, h, s_op, ritz_val, ritz_vec)

@@ -54,13 +54,16 @@ class Dropout(nn.Module):
     set (a runner seeds one per run, on the model's device) and from
     PyTorch's default stream otherwise.
 
-    Across the ranks of a data- or tensor-parallel QM8 run every rank's
-    generator has the run's seed, and ``rows = (d, dp)`` says that ``x``
-    holds block ``d`` of ``dp`` equal row blocks of the whole batch: the
-    rank draws the whole batch's mask, as one device would, and keeps
-    its block. So the ``tp`` ranks of one block draw the same masks (they
-    compute one replicated function), and a dp × tp run draws the masks
-    of one device."""
+    Across ranks every rank's generator has the run's seed, and ``rows =
+    (d, dp)`` says that ``x`` holds block ``d`` of ``dp`` equal blocks of
+    the whole tensor on ``axis``: the rank draws the whole tensor's mask,
+    as one device would, and keeps its block. In a data- or
+    tensor-parallel QM8 run the axis is the batch (0): the ``tp`` ranks
+    of one block draw the same masks (they compute one replicated
+    function), and a dp × tp run draws the masks of one device. In a
+    node-sharded citation run it is the node axis (1): each rank keeps
+    its rows of the whole graph's mask, so D ranks draw one device's
+    masks too."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -69,6 +72,7 @@ class Dropout(nn.Module):
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
         self.rows = (0, 1)
+        self.axis = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
@@ -77,19 +81,22 @@ class Dropout(nn.Module):
             return F.dropout(x, self.p, training=True)
         keep = 1.0 - self.p
         d, dp = self.rows
-        whole = x.new_empty((dp * x.shape[0],) + tuple(x.shape[1:]))
-        scale = whole.bernoulli_(keep, generator=self.generator)[d * x.shape[0]:][: x.shape[0]]
-        return x * scale.div_(keep)
+        n = x.shape[self.axis]
+        shape = list(x.shape)
+        shape[self.axis] = dp * n
+        whole = x.new_empty(shape).bernoulli_(keep, generator=self.generator)
+        return x * whole.narrow(self.axis, d * n, n).div_(keep)
 
 
 def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator],
-                          rows: tuple[int, int] = (0, 1)) -> None:
-    """Draw every ``Dropout`` mask of ``model`` from ``generator``, the
-    rows ``rows = (d, dp)`` of the whole batch's (see ``Dropout``)."""
+                          rows: tuple[int, int] = (0, 1), axis: int = 0) -> None:
+    """Draw every ``Dropout`` mask of ``model`` from ``generator``, block
+    ``rows = (d, dp)`` on ``axis`` of the whole tensor's (see ``Dropout``)."""
     for mod in model.modules():
         if isinstance(mod, Dropout):
             mod.generator = generator
             mod.rows = rows
+            mod.axis = axis
 
 
 class OneHotEmbed(nn.Module):

@@ -33,6 +33,7 @@ class ChebyNet(GCN):
     def layer_in(self, d: int) -> int:
         return d * (self.num_edge_type + 1) * (self.poly_order + 1)
 
-    def features(self, h: torch.Tensor, ops: torch.Tensor) -> torch.Tensor:
-        cheb = per_channel(lambda op, x: chebyshev_features(op, x, self.poly_order), ops, h)
+    def features(self, h: torch.Tensor, ops: torch.Tensor, shard) -> torch.Tensor:
+        cheb = per_channel(lambda op, x: chebyshev_features(op, x, self.poly_order, shard),
+                           ops, h)
         return cheb.to(h.dtype)

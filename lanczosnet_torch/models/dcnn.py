@@ -21,9 +21,9 @@ def per_channel(fn, ops: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """``fn(op, x) → [B', P, N, F]`` applied to every channel of ``ops
     [B,E,N,N]`` with ``x = h [B,N,F]`` as float32, in one batched call →
     ``[B, N, E·P·F]`` in the order channel, then ``P``, then feature."""
-    b, e, n, _ = ops.shape
+    b, e, n, cols = ops.shape  # a node-sharded batch: its n rows of every column
     x = h.float()[:, None].expand(b, e, n, h.shape[-1]).reshape(b * e, n, -1)
-    feats = fn(ops.reshape(b * e, n, n), x)  # [B·E, P, N, F]
+    feats = fn(ops.reshape(b * e, n, cols), x)  # [B·E, P, N, F]
     feats = feats.reshape(b, e, feats.shape[1], n, -1)
     return feats.permute(0, 3, 1, 2, 4).reshape(b, n, -1)
 
@@ -43,6 +43,6 @@ class DCNN(GCN):
     def layer_in(self, d: int) -> int:
         return d * (1 + (self.num_edge_type + 1) * self.max_hop)
 
-    def features(self, h: torch.Tensor, ops: torch.Tensor) -> torch.Tensor:
-        hops = per_channel(lambda op, x: diffusion_features(op, x, self.max_hop), ops, h)
+    def features(self, h: torch.Tensor, ops: torch.Tensor, shard) -> torch.Tensor:
+        hops = per_channel(lambda op, x: diffusion_features(op, x, self.max_hop, shard), ops, h)
         return torch.cat([h, hops.to(h.dtype)], dim=-1)

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lanczosnet_torch.core.graph_batch import GraphBatch
+from lanczosnet_torch.core.graph_batch import GraphBatch, gather_nodes, row_eye
 from lanczosnet_torch.models.base import (
     Dropout,
     GraphModel,
@@ -51,21 +51,27 @@ class GATLayer(nn.Module):
         self.a_src = linears(num_heads)
         self.a_dst = linears(num_heads)
 
-    def forward(self, h: torch.Tensor, ops: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+        """Node states ``h [B, N, F]`` over ``batch``'s operators (a
+        node-sharded batch: ``h`` its rows; the targets ``j`` are every
+        node, their projections gathered)."""
         b, n, _ = h.shape
+        cols = batch.n_nodes
         e, hd, fd = len(self.w), self.num_heads, self.out_dim
-        weight = torch.cat([lin.weight for group in (self.w, self.a_src, self.a_dst)
+        weight = torch.cat([lin.weight for group in (self.a_src, self.w, self.a_dst)
                             for lin in group]).to(self.act_dtype)
         proj = F.linear(h.to(self.act_dtype), weight)
-        z, a_src, a_dst = proj.split([e * hd * fd, e * hd, e * hd], dim=-1)
-        z = z.reshape(b, n, e, hd, fd)
+        # the targets' projections, gathered where the batch is node-sharded
+        a_src, targets = proj[..., : e * hd], gather_nodes(proj[..., e * hd:], batch.shard)
+        z, a_dst = targets.split([e * hd * fd, e * hd], dim=-1)
+        z = z.reshape(b, cols, e, hd, fd)
         a_src = a_src.reshape(b, n, e, hd).permute(0, 2, 3, 1)  # [B,E,H,N]
-        a_dst = a_dst.reshape(b, n, e, hd).permute(0, 2, 3, 1)
+        a_dst = a_dst.reshape(b, cols, e, hd).permute(0, 2, 3, 1)
         # the sum at the activation dtype, then float32, as the JAX layer
         scores = (a_src[..., :, None] + a_dst[..., None, :]).float()  # [B,E,H,N,N]
         scores = F.leaky_relu(scores, LEAKY_SLOPE)
-        eye = torch.eye(n, dtype=torch.bool, device=h.device)
-        support = ((ops > 0) | eye).float() * (mask[:, :, None] * mask[:, None, :])[:, None]
+        eye = row_eye(batch, torch.bool)
+        support = ((batch.ops > 0) | eye).float() * batch.pair_mask()[:, None]
         att = masked_softmax(scores, support[:, :, None])
         out = torch.einsum("behij,bjehf->bihf", att, z.float())
         return out.reshape(b, n, hd * fd).to(self.act_dtype)
@@ -112,6 +118,6 @@ class GAT(GraphModel):
         h = self.encoder(batch.atom_type, batch.node_feat, batch.mask).to(cdt)
         mask = batch.mask.to(cdt)[..., None]
         for layer in self.layers:
-            h = F.elu(layer(h, batch.ops, batch.mask))
+            h = F.elu(layer(h, batch))
             h = self.dropout(h) * mask
         return self.readout(h.float(), batch.mask)

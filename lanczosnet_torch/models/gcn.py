@@ -10,16 +10,19 @@ float32 and is stored at the activation dtype.
 a layer whose input is the layer's features (``features``) of the
 operator stack the model propagates through (``operators``), of width
 ``layer_in(d)`` for node states of width ``d``.
+
+On a node-sharded batch (``core/graph_batch.py``) the operators are this
+rank's rows and each propagation gathers the node states whole first.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from lanczosnet_torch.core.graph_batch import GraphBatch
+from lanczosnet_torch.core.graph_batch import GraphBatch, NodeShard, gather_nodes
 from lanczosnet_torch.models.base import (
     Dense,
     Dropout,
@@ -32,10 +35,12 @@ from lanczosnet_torch.models.base import (
 )
 
 
-def with_messages(h: torch.Tensor, ops: torch.Tensor) -> torch.Tensor:
+def with_messages(h: torch.Tensor, ops: torch.Tensor,
+                  shard: Optional[NodeShard] = None) -> torch.Tensor:
     """``[h ‖ {A_e h}_e]`` for ``ops [B,E,N,N]``: the propagation in
     float32, stored at ``h``'s dtype."""
-    return torch.cat([h, edge_message_concat(ops, h.float()).to(h.dtype)], dim=-1)
+    msgs = edge_message_concat(ops, gather_nodes(h, shard).float())
+    return torch.cat([h, msgs.to(h.dtype)], dim=-1)
 
 
 class GCN(GraphModel):
@@ -81,9 +86,10 @@ class GCN(GraphModel):
         formed once a forward."""
         return batch.ops
 
-    def features(self, h: torch.Tensor, ops: torch.Tensor) -> torch.Tensor:
-        """A layer's ``Linear`` input."""
-        return with_messages(h, ops)
+    def features(self, h: torch.Tensor, ops: torch.Tensor,
+                 shard: Optional[NodeShard]) -> torch.Tensor:
+        """A layer's ``Linear`` input (``shard``: the batch's, or None)."""
+        return with_messages(h, ops, shard)
 
     def activate(self, h: torch.Tensor) -> torch.Tensor:
         """After the layer's ``Linear``, before the Dropout."""
@@ -96,6 +102,6 @@ class GCN(GraphModel):
         mask = batch.mask.to(cdt)[..., None]
         ops = self.operators(batch)
         for layer in self.layers:
-            h = self.activate(layer(self.features(h, ops)))
+            h = self.activate(layer(self.features(h, ops, batch.shard)))
             h = self.dropout(h) * mask
         return self.readout(h.float(), batch.mask)

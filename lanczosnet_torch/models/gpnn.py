@@ -37,13 +37,13 @@ from lanczosnet_torch.models.gcn import with_messages
 
 
 def partition_operators(batch: GraphBatch) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(intra_ops, cut_ops [B,E+1,N,N], boundary [B,N])``, float32."""
+    """``(intra_ops, cut_ops [B,E+1,N,N], boundary [B,N])``, float32 (a
+    node-sharded batch: its rows against every column)."""
     pair = batch.pair_mask()
     if batch.cluster is None:
         same = pair
     else:
-        c = batch.cluster
-        same = (c[:, :, None] == c[:, None, :]).float() * pair
+        same = (batch.cluster[:, :, None] == batch.col_cluster[:, None, :]).float() * pair
     cross = pair - same
     intra_ops = batch.ops * same[:, None]
     cut_ops = batch.ops * cross[:, None]
@@ -121,7 +121,7 @@ class GPNN(GraphModel):
                 h = self.dropout(h)
                 continue
             ops = intra_ops if kind == "intra" else cut_ops
-            upd = torch.relu(self.dense[name](with_messages(h, ops)))
+            upd = torch.relu(self.dense[name](with_messages(h, ops, batch.shard)))
             if kind == "intra":
                 h = upd * mask
             else:

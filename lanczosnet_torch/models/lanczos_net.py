@@ -15,7 +15,10 @@ The layer is ``Linear([h ‖ channels @ h])`` → ReLU → Dropout → mask.
 Up to 128 padded nodes the channels are formed as explicit ``[N, N]``
 matrices and applied in one stacked product (the fused path); above,
 each is applied in factored form (``ops/poly.py``, ``ops/spectral.py``)
-and no ``[N, N]`` matrix beyond S itself is formed. The gated attention
+and no ``[N, N]`` matrix beyond S itself is formed. A node-sharded batch
+always takes the factored path, on its rows: the hops gather the node
+states, ``Vᵀh`` sums over the ranks, and the Ritz vectors are cut by
+rows like every node array. The gated attention
 readout (``task: graph``) or the per-node head (``task: node``) follows
 the last layer.
 
@@ -35,7 +38,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from lanczosnet_torch.core.graph_batch import GraphBatch
+from lanczosnet_torch.core.graph_batch import GraphBatch, gather_nodes
 from lanczosnet_torch.models.base import (
     Dense,
     Dropout,
@@ -266,7 +269,8 @@ class LanczosNet(GraphModel):
         cdt = self.dtype
         h = h.to(cdt)
         mask = batch.mask.to(cdt)
-        fused = batch.n_max <= FUSED_N_MAX
+        shard = batch.shard
+        fused = shard is None and batch.n_max <= FUSED_N_MAX
         filt_bank = self.spectral_filters(ritz_val) if self.spectral_filters is not None else None
         short_ops = operator_powers(s_op, self.short_dists) if fused and self.short_dists else None
         edge_ops = batch.ops[:, 1:] if batch.num_ops > 1 else None
@@ -280,12 +284,13 @@ class LanczosNet(GraphModel):
                 x = h.float()
                 parts = [h]
                 if self.short_dists:
-                    short = diffusion_features_at(s_op, x, self.short_dists)
+                    short = diffusion_features_at(s_op, x, self.short_dists, shard)
                     parts.append(flatten_feature_stack(short).to(cdt))
                 if filt is not None:
-                    parts.append(flatten_feature_stack(long_scale_features(ritz_vec, filt, x)).to(cdt))
+                    long_ = long_scale_features(ritz_vec, filt, x, shard)
+                    parts.append(flatten_feature_stack(long_).to(cdt))
                 if edge_ops is not None:
-                    parts.append(edge_message_concat(edge_ops, x).to(cdt))
+                    parts.append(edge_message_concat(edge_ops, gather_nodes(x, shard)).to(cdt))
                 h = layer(torch.cat(parts, dim=-1) if len(parts) > 1 else h)
             h = torch.relu(h)
             h = self.dropout(h)

@@ -23,7 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from lanczosnet_torch.core.graph_batch import GraphBatch
+from lanczosnet_torch.core.graph_batch import GraphBatch, gather_nodes
 from lanczosnet_torch.models.base import (
     Dropout,
     GraphModel,
@@ -81,16 +81,18 @@ class MPNN(GraphModel):
             h = self.in_proj(h)
         cdt = self.dtype
         b, n = batch.mask.shape
+        cols = batch.n_nodes  # n on one device; a node-sharded batch holds n of them
         e, dim = batch.num_ops, self.dim
         w_msg, w_in, w_st, b_gru = (p.to(cdt) for p in
                                     (self.w_msg, self.gru_w_in, self.gru_w_st, self.gru_b))
         mask = batch.mask.to(cdt)[..., None]
         # Σ_e Σ_j ops[e,i,j] z[e,j] as one product over (e, j): [B, N, E·N]
-        ops_cat = batch.ops.transpose(1, 2).reshape(b, n, e * n)
+        ops_cat = batch.ops.transpose(1, 2).reshape(b, n, e * cols)
         h = h.to(cdt)
         for _ in range(self.num_prop):
-            z = (h @ w_msg).reshape(b, n, e, dim).transpose(1, 2)  # [B,E,N,dim]
-            m = torch.bmm(ops_cat, z.float().reshape(b, e * n, dim)).to(cdt)
+            z = gather_nodes(h @ w_msg, batch.shard)
+            z = z.reshape(b, cols, e, dim).transpose(1, 2)  # [B,E,N,dim]
+            m = torch.bmm(ops_cat, z.float().reshape(b, e * cols, dim)).to(cdt)
             zi, ri, ci = (m @ w_in + b_gru).chunk(3, dim=-1)
             zs, rs, cs = (h @ w_st).chunk(3, dim=-1)
             update = torch.sigmoid(zi + zs)

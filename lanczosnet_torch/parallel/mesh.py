@@ -29,6 +29,11 @@ and ``ring_op_piece`` turn a rank's slice into its operator.
 - ``shard_node_array``: a node-major array zero-padded to D·n_loc rows
   and cut into the blocks.
 
+Last the dense full graph (``shard_full_graph``, the dense citation
+runner's node-sharding): a packed B=1 graph, already padded to a
+multiple of D, cut into rank r's rows, by the rule of the JAX function
+of that name.
+
 Bucketing keeps each bucket's edges in their order in the input (a
 stable sort by bucket, as the JAX functions' boolean masks keep it).
 """
@@ -142,6 +147,48 @@ def shard_node_array(x: np.ndarray, n_pad: int, ndev: int) -> np.ndarray:
     x = np.asarray(x)
     pad = np.zeros((n_pad - x.shape[0],) + x.shape[1:], x.dtype)
     return np.concatenate([x, pad]).reshape((ndev, n_pad // ndev) + x.shape[1:])
+
+
+def node_axes(arrays: dict) -> dict:
+    """The axis each array of a packed B=1 full graph is cut on (None:
+    whole), by ``lanczosnet_tpu/parallel/mesh.py:shard_full_graph``'s
+    rule: ``ops [1, E, N, N]`` by rows (axis 2), every ``[1, N, ...]``
+    on axis 1, the rest (``ritz_val``, ``label``) whole. ``N`` is the
+    padded node count, ``mask``'s second axis."""
+    n_pad = arrays["mask"].shape[1]
+    axes = {}
+    for key, a in arrays.items():
+        if a is None:
+            continue
+        if a.ndim == 4 and a.shape[2] == n_pad:
+            axes[key] = 2
+        elif a.ndim >= 2 and a.shape[1] == n_pad:
+            axes[key] = 1
+        else:
+            axes[key] = None
+    return axes
+
+
+def node_rows(a: np.ndarray, axis: int, ndev: int, rank: int) -> np.ndarray:
+    """Rank ``rank``'s contiguous block of ``a`` on ``axis`` (a view)."""
+    n_loc = a.shape[axis] // ndev
+    return a[(slice(None),) * axis + (slice(rank * n_loc, (rank + 1) * n_loc),)]
+
+
+def shard_full_graph(arrays: dict, ndev: int, rank: int) -> dict:
+    """Rank ``rank``'s piece of a packed B=1 full graph (``arrays``: the
+    ``GraphBatch`` fields and split masks as numpy, the node axis padded
+    to a multiple of ``ndev``): each array cut as ``node_axes`` says,
+    and the column vectors whole, ``col.mask`` (``pair_mask``'s columns)
+    and, where GPNN's partition is packed, ``col.cluster``."""
+    if arrays["mask"].shape[1] % ndev:
+        raise ValueError(f"{arrays['mask'].shape[1]} padded nodes do not split over {ndev} ranks")
+    piece = {k: arrays[k] if axis is None else node_rows(arrays[k], axis, ndev, rank)
+             for k, axis in node_axes(arrays).items()}
+    piece["col.mask"] = arrays["mask"]
+    if arrays.get("cluster") is not None:
+        piece["col.cluster"] = arrays["cluster"]
+    return piece
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -64,7 +64,6 @@ draws them from shapes alone, so this runner has no twin.
 
 from __future__ import annotations
 
-import resource
 import time
 from pathlib import Path
 from typing import Mapping, Optional
@@ -95,6 +94,7 @@ from lanczosnet_torch.train.optim import build_optimizer
 from lanczosnet_torch.train.unported import refuse_unported
 from lanczosnet_torch.utils.device import resolve_device
 from lanczosnet_torch.utils.logger import MetricsLogger, get_logger
+from lanczosnet_torch.utils.memory import host_peak_rss_mb
 
 REMAT_MODES = {"": None, "false": None, "none": None, "0": None,
                "full": "full", "true": "full", "1": "full", "dots": "dots", "layers": "layers"}
@@ -136,11 +136,6 @@ def dropout_seed(seed: int, mode: str | None, rank: int) -> int:
 
 def _save_products(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def host_peak_rss_mb() -> float:
-    """This process's peak resident set on the host, MB."""
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
 
 
 def sparse_citation_graph(dcfg: Mapping) -> dict:

@@ -1,40 +1,59 @@
-"""Options of the JAX runners that the port does not run yet.
+"""Options of the JAX runners that the port does not run, and options a
+runner does not read.
 
-The three runners check a config against one table before they build
-anything, so an option the port would ignore raises instead, naming the
-ROADMAP item that ports it. ``train.prng_impl`` is accepted: it picks
-JAX's random-bit generator and has no torch counterpart. Sharding is
-ported for ``SparseCitationRunner`` (``train.num_devices`` > 1,
-``train.shard``; A11) and for ``QM8Runner`` (``train.num_devices`` > 1,
-``train.tp`` > 1; the first half of A11b); the dense citation runner's
-node-sharding is the rest of A11b.
+The three runners check a config against two tables before they build
+anything. ``NOT_PORTED``: an option the port would ignore raises
+``NotImplementedError``, naming the ROADMAP item that ports it.
+``NOT_READ``: an option the JAX runner itself never reads raises
+``ValueError``, since ignoring it would run another experiment than
+the config says (the dense citation runner shards node rows only, so
+``train.tp`` and ``train.shard`` mean nothing to it). ``train.prng_impl``
+is accepted: it picks JAX's random-bit generator and has no torch
+counterpart. Sharding is ported for every runner:
+``SparseCitationRunner`` (``train.num_devices`` > 1, ``train.shard``;
+A11), ``QM8Runner`` (``train.num_devices`` > 1, ``train.tp`` > 1; the
+first half of A11b) and ``CitationRunner`` (``train.num_devices`` > 1,
+by node rows; the second half).
 """
 
 from __future__ import annotations
 
 from typing import Mapping, Optional
 
-# (section, key, refused when, the ROADMAP item that ports it, runners that run it)
+# (section, key, refused when, the ROADMAP item that ports it)
 NOT_PORTED = (
-    ("dataset", "buckets", bool, "A12 (data/buckets.py)", ()),
-    ("train", "bucket_pair", bool, "A12 (data/buckets.py)", ()),
-    ("train", "tp", lambda v: int(v) > 1, "A11b", ("QM8Runner",)),
-    ("train", "num_devices", lambda v: int(v) > 1, "A11b",
-     ("SparseCitationRunner", "QM8Runner")),
-    ("train", "shard", bool, "A11b", ("SparseCitationRunner",)),
-    ("train", "profile", bool, "A12", ()),
-    ("train", "tensorboard", bool, "A12", ()),
+    ("dataset", "buckets", bool, "A12 (data/buckets.py)"),
+    ("train", "bucket_pair", bool, "A12 (data/buckets.py)"),
+    ("train", "profile", bool, "A12"),
+    ("train", "tensorboard", bool, "A12"),
+)
+
+_NODES_ONLY = "the dense citation runner shards node rows only (train.num_devices)"
+# (section, key, refused when, runner, why): what that runner's JAX
+# counterpart never reads
+NOT_READ = (
+    ("train", "tp", lambda v: int(v) > 1, "CitationRunner", _NODES_ONLY),
+    ("train", "shard", bool, "CitationRunner", _NODES_ONLY),
+    ("train", "tp", lambda v: int(v) > 1, "SparseCitationRunner",
+     "the sparse citation runner shards the graph only (train.shard)"),
+    ("train", "shard", bool, "QM8Runner",
+     "the QM8 runner shards batches and layers (train.num_devices, train.tp)"),
 )
 
 
 def refuse_unported(config: Mapping, runner: Optional[str] = None) -> None:
     """Raise ``NotImplementedError`` for the first option of ``config``
-    that ``NOT_PORTED`` refuses for ``runner`` (the config's own
-    ``runner``, QM8Runner by default, where not named)."""
+    that ``NOT_PORTED`` refuses, ``ValueError`` for one that ``NOT_READ``
+    names for ``runner`` (the config's own ``runner``, QM8Runner by
+    default, where not named)."""
     runner = runner or config.get("runner", "QM8Runner")
-    for section, key, refused, item, runs in NOT_PORTED:
+    for section, key, refused, item in NOT_PORTED:
         value = (config.get(section) or {}).get(key)
-        if value is not None and refused(value) and runner not in runs:
+        if value is not None and refused(value):
             raise NotImplementedError(
                 f"{section}.{key}={value!r} is not ported yet for {runner} (ROADMAP {item})"
             )
+    for section, key, refused, name, why in NOT_READ:
+        value = (config.get(section) or {}).get(key)
+        if value is not None and refused(value) and runner == name:
+            raise ValueError(f"{section}.{key}={value!r}: {why}")

@@ -299,9 +299,20 @@ def test_citation_runner_needs_a_card_unless_told(tmp_path, monkeypatch):
 )
 def test_refused_options_name_their_roadmap_item(tmp_path, section, key, value, item):
     """The options the JAX citation runner honours and the port does not
-    run yet raise before anything is built, as in ``QM8Runner``."""
+    run yet raise before anything is built, as in ``QM8Runner``. Since
+    A11b ``train.num_devices`` runs (outside a process group of its size
+    it raises), and ``train.tp``, which the JAX runner never reads,
+    raises ``ValueError``: the dense runner shards node rows only."""
     cfg = runner_config(tmp_path / "run")
     cfg[section] = {**cfg.get(section, {}), key: value}
+    if key == "num_devices":
+        with pytest.raises(RuntimeError, match="not inside a process group"):
+            CitationRunner(cfg, device="cpu")
+        return
+    if key == "tp":
+        with pytest.raises(ValueError, match="train.tp.*shards node rows only"):
+            CitationRunner(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"{section}.{key}.*{item}"):
         CitationRunner(cfg, device="cpu")
 

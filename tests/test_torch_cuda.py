@@ -32,7 +32,9 @@ partition launches the streamed kernel and equals the CPU's on separated
 clusters; ``remat: layers`` gives the loss of no remat (1e-5 relative).
 Two steps of the full-width flagship on four ranks of the card (dp=2 ×
 tp=2, gloo) give one device's losses and parameters, and each rank holds
-the rule's share of the parameters and Adam moments.
+the rule's share of the parameters and Adam moments. Two steps of a
+node-sharded AdaLanczosNet on two ranks of the card (B2 in every rank's
+forward) give one device's logits, losses and gradients.
 """
 
 import copy
@@ -674,3 +676,48 @@ def test_a_dp2_tp2_step_on_the_card_matches_one_device(card, tmp_path):
             np.testing.assert_allclose(workers.as_numpy(got["grads"][name]), want, rtol=0,
                                        atol=1e-4 * np.abs(want).max(), err_msg=name)
         assert got["state_bytes"] == got["predicted_state_bytes"] < one["state_bytes"]
+
+
+def test_a_node_sharded_step_on_the_card_matches_one_device(card, tmp_path):
+    """Synthetic Cora at scale 0.08 (N=216, past the shared-memory
+    kernel's 128, so every rank's forward runs B2 on the gathered learned
+    operator), AdaLanczosNet with dropout 0.5, on two ranks sharing the
+    card over gloo: the eval logits 1e-5, two Adam steps' losses 1e-5
+    relative, the first step's gradients 1e-4 of each parameter's largest
+    (``kernel_embed.bias``, whose exact gradient is zero, only as noise)."""
+    from lanczosnet_torch.parallel import multihost
+    from lanczosnet_torch.train.citation_runner import CitationRunner
+    import torch_rank_workers as workers
+
+    cfg = {"exp_name": "node_sharded", "runner": "CitationRunner", "seed": 3,
+           "dataset": {"source": "synthetic", "name": "cora", "scale": 0.08},
+           "model": {"name": "AdaLanczosNet", "hidden_dim": [16], "embed_dim": 16,
+                     "dropout": 0.5, "num_eig_vec": 8, "kernel_dim": 8},
+           "train": {"optimizer": "Adam", "lr": 1e-2, "wd": 5e-4}, "test": {}}
+    weights = CitationRunner({**cfg, "save_dir": str(tmp_path / "init")}, "cpu").model.state_dict()
+    case = {"key": "ada", "config": cfg, "weights": weights, "steps": 2}
+    torch.save({"cases": [case]}, tmp_path / "spec.pt")
+    out = tmp_path / "out"
+    out.mkdir()
+    launches = lanczos_cuda.stream_launches.count
+    code = multihost.launch(2, "torch_rank_workers:node_sharded_cases",
+                            [str(tmp_path / "spec.pt"), str(out)], store_dir=tmp_path,
+                            threads=2, pythonpath=[TESTS], timeout=600)
+    assert code == 0
+    one = workers.node_case({**case, "device": "cuda"}, tmp_path / "one")
+    assert lanczos_cuda.stream_launches.count > launches  # one device's forward ran B2 too
+    for res in workers.read_ranks(out, 2):
+        got = res["ada"]
+        assert got["device"].startswith("cuda") and got["ops_shape"] == (1, 2, 108, 216)
+        torch.testing.assert_close(got["logits"], one["logits"], rtol=0, atol=1e-5)
+        for a, b in zip(got["losses"], one["losses"]):
+            assert a == pytest.approx(b, rel=1e-5)
+        for name, want in one["grads"].items():
+            scale = float(want.abs().max())
+            if name == "kernel_embed.bias":
+                noise = 1e-6 * max(float(g.abs().max()) for g in one["grads"].values())
+                assert scale < noise and float(got["grads"][name].abs().max()) < noise
+                continue
+            np.testing.assert_allclose(workers.as_numpy(got["grads"][name]),
+                                       workers.as_numpy(want), rtol=0, atol=1e-4 * scale,
+                                       err_msg=name)

@@ -185,16 +185,18 @@ def test_a_runner_outside_a_group_of_its_size_raises(tmp_path):
     (SparseCitationRunner, {"tp": 2}),
 ])
 def test_a11b_options_are_refused(tmp_path, runner, train):
-    """The dense citation runner's node-sharding and the sparse runner's
-    ``tp`` still name A11b. ``QM8Runner`` runs both options since A11b's
-    first half: outside a process group of its mesh's size it raises."""
+    """A11b is done: ``QM8Runner`` runs ``tp`` and ``num_devices`` and
+    ``CitationRunner`` ``num_devices`` (node rows), so outside a process
+    group of the run's size they raise. An option the runner's JAX
+    counterpart never reads raises ``ValueError``: the dense runner's
+    ``shard`` (it shards node rows only) and the sparse runner's ``tp``."""
     cfg = {"seed": 1, "save_dir": str(tmp_path), "dataset": {}, "model": {"name": "GCN"},
            "train": {"batch_size": 64, **train}}
-    if runner is QM8Runner:
+    if "num_devices" in train or runner is QM8Runner:
         with pytest.raises(RuntimeError, match="not inside a process group"):
             runner(cfg, "cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"train.{next(iter(train))}.*A11b"):
+    with pytest.raises(ValueError, match=f"train.{next(iter(train))}.*shards"):
         runner(cfg, "cpu")
 
 

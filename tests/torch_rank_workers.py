@@ -379,15 +379,15 @@ def mesh_cases(spec_path: str, out_dir: str) -> int:
         out[case["key"]] = CASES[case["kind"]](case, layout)
     out["world"] = world.describe()
     if spec.get("cycle"):
-        out["cycle"] = qm8_cycle(spec["cycle"])
+        out["cycle"] = run_cycle(spec["cycle"])
     torch.save(out, Path(out_dir) / f"rank{world.rank}.pt")
     return 0
 
 
-def qm8_cycle(config_path: str) -> dict:
-    """Train the QM8 config, ``-t`` its best checkpoint, train one more
-    epoch from its latest snapshot, as ``cli.run`` does in each rank; the
-    checkpoint files each rank wrote."""
+def run_cycle(config_path: str) -> dict:
+    """Train the config (QM8 or citation), ``-t`` its best checkpoint,
+    train one more epoch from its latest snapshot, as ``cli.run`` does in
+    each rank; the exit codes and the checkpoint files each rank wrote."""
     from lanczosnet_torch.utils.config import AttrDict, loads
 
     writes = []
@@ -401,3 +401,62 @@ def qm8_cycle(config_path: str) -> dict:
                                                   "max_epoch": base.train.max_epoch + 1}})
     codes["resume"] = cli.run(resumed, False, "INFO", "cpu")
     return {"codes": codes, "writes": [path for path, _ in writes]}
+
+
+# ------------------------------------------------ the node-sharded citation runner
+def node_case(case: dict, save_dir, world: int = 1) -> dict:
+    """A case (``config``, ``weights``, ``steps``; ``pad_to``, how the one
+    device packs the graph; ``device``, the CPU where not named) on this
+    rank's rows of the graph (on the rank's device), or on one device
+    where ``world`` is 1: the eval logits of the real nodes, the first
+    step's gradients, the losses of ``steps`` steps, the shape of the
+    operator rows held; AdaLanczosNet's learned operator on the real
+    nodes."""
+    from lanczosnet_torch.train.citation_runner import CitationRunner, citation_graph
+    from lanczosnet_torch.train.node_step import make_node_train_step
+    from lanczosnet_torch.train.optim import build_optimizer
+
+    cfg = {**case["config"], "save_dir": str(save_dir),
+           "train": {**case["config"]["train"], "num_devices": world}}
+    runner = CitationRunner(cfg, case.get("device", "cpu"))
+    if world == 1 and case.get("pad_to", 1) != 1:
+        # the graph padded as the ranks pad it, so that both draw one dropout mask
+        runner.batch, runner.splits = runner._pack(
+            citation_graph(cfg["dataset"]), {**cfg["model"], "task": "node"}, case["pad_to"],
+            runner.device)
+    model = runner.model
+    model.load_state_dict(case["weights"], strict=True)
+    n = runner.n_true
+    out = {"logits": runner.gathered_logits()}
+    if cfg["model"]["name"] == "AdaLanczosNet":
+        batch = runner.batch
+        with torch.no_grad():
+            h = model.encoder(batch.atom_type, batch.node_feat, batch.mask)
+            s = model.learned_operator(h, batch)[0]
+        s = s if runner.comm is None else runner.comm.all_gather(s)
+        out["learned_operator"] = s[:n, :n]
+    optimizer, scheduler, clip = build_optimizer(model.parameters(), cfg["train"], 1)
+    step = make_node_train_step(model, optimizer, scheduler, clip, runner.comm)
+    losses = []
+    for i in range(case["steps"]):
+        losses.append(float(step(runner.batch, runner.splits["train"], runner._count("train"))))
+        if i == 0:
+            out["grads"] = {k: p.grad.clone() for k, p in model.named_parameters()}
+    out.update(losses=losses, ops_shape=tuple(runner.batch.ops.shape), device=str(runner.device))
+    return {k: {n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+            else v.cpu() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
+
+
+def node_sharded_cases(spec_path: str, out_dir: str) -> int:
+    """Each case of the spec on this rank's rows; then, where the spec
+    names ``cycle`` (a config file), the runner's train, ``-t`` and
+    resume as ``cli.run`` does them in each rank."""
+    spec = torch.load(spec_path, weights_only=False)
+    world = multihost.world()
+    out = {c["key"]: node_case(c, Path(out_dir) / c["key"], world.size) for c in spec["cases"]}
+    out["world"] = world.describe()
+    if spec.get("cycle"):
+        out["cycle"] = run_cycle(spec["cycle"])
+    torch.save(out, Path(out_dir) / f"rank{world.rank}.pt")
+    return 0
+
