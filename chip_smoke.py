@@ -16,7 +16,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    PyTorch version on the card, all six outputs within 1e-4 and the
    same breakdown step, on masked random operators at sizes that reach
    each of its three instantiations (sums padded to 32, 64, 128) at and
-   beside their edges, an all-zero graph, and QM8-like operators at
+   beside their edges, more steps than nodes (N=8, K=9; N=16 and N=24,
+   K=20; these 0.0 from the plain version), an all-zero graph, and QM8-like operators at
    B=64, N=32, K=20; then both timed with CUDA events at B=64 and B=256.
 4. serve: the flagship LanczosNet of ``configs/qm8_lanczos_net.yaml``
    at full width, weights drawn from a seeded generator, behind
@@ -28,7 +29,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    own config reader and cut to 4 epochs (``max_epoch`` 30 → 4, so the
    ``lr_decay_epoch`` milestones never fire; the run directory in a
    temporary one; ``dataset.pack_cache: false``, so the three packs run
-   the kernel), trains the flagship at full width through
+   the kernel; their operators come from the native packer,
+   ``data/native.py``, with no fallback), trains the flagship at full
+   width through
    ``python -m lanczosnet_torch.cli``: every epoch's loss finite and the
    last below the first, validation and test MAE finite, the
    shared-memory kernel launched at least once per 256-graph chunk of
@@ -37,7 +40,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    gives the run's test MAE again (1e-6); ``Predictor.from_run_dir``
    behind ``MicroBatcher`` answers the test graphs as the restored model
    does on the packed batches (1e-4); graphs/s, MFU, a stage split of
-   one training step and a profile of a few steps are printed.
+   one training step, a profile of a few steps and the host seconds of
+   the splits' operators by the native packer and by the torch path are
+   printed.
 6. qm8_models: the nine other QM8 configs that train on one card
    (``configs/qm8_{gcn,graph_sage,dcnn,chebynet,gat,mpnn,gpnn}.yaml``,
    ``qm8_lanczos_net_bf16.yaml``, ``qm8_ada_lanczos_net.yaml``) at full
@@ -57,6 +62,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the ``kernel_embed`` gradient (1e-4); a profile counts a step's
    launches. The bfloat16 flagship's packs launch the kernel, and the
    profile of one of its steps names the bfloat16 GEMM kernels.
+6b. qm8_buckets: the flagship at full width in size buckets [16, 24, 32]
+   (the 16 bound under K=20: more Lanczos steps than nodes) with paired
+   steps (``train.bucket_pair``), ``train.profile`` and
+   ``train.tensorboard``, at the qm8_models cut, through the CLI, then
+   ``-t`` and one chunk-interleaved epoch without pairing. Gates: losses
+   finite and falling, ``-t`` equal to the run's test MAE (1e-6), the
+   first epoch's trace shows device time, each bucket's packed Ritz pairs
+   0.0 from the plain version's, the first paired step's loss on the
+   card within 1e-4 of the CPU's (dropout 0, the same weights and packed
+   arrays), the kernel launched in the packs, no native fallback. Graphs
+   a bucket, s an epoch and graphs/s beside the unbucketed flagship's,
+   and whether the TensorBoard writer was made, are printed.
 7. serve_fronts: the run directories of the two phases before, the
    flagship's and GPNN's, served by name through ``ModelServer``
    (``lanczosnet_torch/serve_http.py``, batch 64): first the stdlib HTTP
@@ -172,12 +189,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    0.0 from its plain version at the batch blocks B = 64/dp. Per run: step
    ms, graphs/s, per-rank peak GB, the comm layer's share of a step,
    rank 0's set-up seconds and B1's launches.
-14. kernels: one line per ported kernel, its error, its time, its bound,
+14. dryrun: ``python -m lanczosnet_torch.dryrun --ranks 4``, the ranks
+   sharing the card over gloo: one step of every parallel axis, each
+   within 1e-5 relative of one device's, and the export round trip
+   (0.0); it must exit 0 with its ``ok`` line, every rank on ``cuda:0``.
+15. kernels: one line per ported kernel, its error, its time, its bound,
    its latency floor and its launches, all of this run (the
    shared-memory kernel's launches by path: serving, the flagship's
-   packs, the bfloat16 flagship's run, QM8 AdaLanczosNet's run, the HTTP
-   front, the native front, the served artifact and the QM8 mesh runs'
-   packs; it runs behind the custom operator
+   packs, the bfloat16 flagship's run, QM8 AdaLanczosNet's run, the
+   bucketed flagship's packs, the HTTP front, the native front, the
+   served artifact, the QM8 mesh runs' packs and the dry run's ranks; it
+   runs behind the custom operator
    ``lanczosnet::lanczos_tridiag_resid``; the streamed kernel's by path:
    the Cora AdaLanczosNet run, the dense citation configs and the
    node-sharded ones).
@@ -207,6 +229,8 @@ import torch
 
 from lanczosnet_torch import cli, serve_native
 from lanczosnet_torch.core.graph_batch import batch_graphs
+from lanczosnet_torch.data import native
+from lanczosnet_torch.data.buckets import pack_dataset_bucketed
 from lanczosnet_torch.data.dataset import RITZ_CHUNK, pack_dataset
 from lanczosnet_torch.data.partition import ritz_partition
 from lanczosnet_torch.data.loader import to_device
@@ -245,8 +269,9 @@ from lanczosnet_torch.train.sparse_citation_runner import (
     SparseCitationRunner,
     sparse_citation_graph,
 )
-from lanczosnet_torch.train.step import make_train_step, weighted_mae
+from lanczosnet_torch.train.step import make_pair_step, make_train_step, weighted_mae
 from lanczosnet_torch.utils import config as config_io
+from lanczosnet_torch.utils.profiling import device_busy_seconds
 
 # configs/qm8_lanczos_net.yaml, its model and dataset sections as written
 # (a test holds these literals to the file; the card has no YAML reader)
@@ -315,6 +340,13 @@ QM8_ADA = "qm8_ada_lanczos_net"
 QM8_MODELS_CUT = {"dataset.num_train": 1024, "dataset.num_val": 128, "dataset.num_test": 128,
                   "train.max_epoch": 3, "dataset.pack_cache": False}
 BF16_TOL = 2e-2  # bfloat16 card against CPU, beside the float32 model's gap
+# the qm8_buckets phase: the flagship in size buckets (the JAX module's
+# recommended bounds; 16 is under K=20), paired steps, profiled, mirrored
+# to TensorBoard, at QM8_MODELS_CUT
+QM8_BUCKET_BOUNDS = [16, 24, 32]
+QM8_BUCKETS_SET = {"dataset.buckets": QM8_BUCKET_BOUNDS, "train.bucket_pair": True,
+                   "train.profile": True, "train.tensorboard": True}
+PAIR_STEP_TOL = 1e-4  # the first paired step's loss, card against CPU
 CITATION_EPOCHS = 12  # the depth cut: of max_epoch 200
 CORA_SHAPE = (2708, 1433, 7)  # nodes, features, classes: the real dataset's
 SERVE_BATCH = 64
@@ -512,6 +544,10 @@ def phase_kernel(dev, launch_ms: float) -> dict:
         "spd-n65-k65": (2, 65, [65, 3], 65),
         "spd-n128-k20": (8, 128, [128, 125, 100, 64, 33, 4, 1, 128], 20),
         "spd-n128-k128": (2, 128, [128, 90], 128),
+        # K > N, as the JAX package runs it (a bucket bound of 16 under K=20)
+        "spd-n8-k9": (2, 8, [8, 5], 9),
+        "spd-n16-k20": (4, 16, [16, 12, 3, 16], 20),
+        "spd-n24-k20": (3, 24, [24, 17, 9], 20),
     }.items():
         s, mask = spd_case(rng, b, n, counts)
         cases[name] = (torch.from_numpy(s).to(dev), torch.from_numpy(mask).to(dev), k)
@@ -527,7 +563,10 @@ def phase_kernel(dev, launch_ms: float) -> dict:
         torch.cuda.synchronize()
         want = lanczos_tridiag_resid(s, mask, k, EPS)
         torch.cuda.synchronize()
-        worst = max(worst, compare_outputs(name, s, k, got, want))
+        err = compare_outputs(name, s, k, got, want)
+        if k > s.shape[-1] and err != 0.0:
+            raise SmokeFailure(f"{name}: K > N must be bit for bit, the kernel reads {err}")
+        worst = max(worst, err)
 
     k = FLAGSHIP_MODEL["num_eig_vec"]
     timing = {}
@@ -727,11 +766,11 @@ def only_run_dir(exp_dir: Path, suffix: str) -> Path:
     return runs[0]
 
 
-def phase_qm8_train(dev, smi: str, tmp: Path) -> tuple[int, Path]:
+def phase_qm8_train(dev, smi: str, tmp: Path) -> tuple[int, Path, float]:
     """Train the flagship through the CLI in ``tmp``, test it with ``-t``,
     serve it with ``Predictor.from_run_dir``. Returns the shared-memory
-    kernel's launches in the training run (the three packs) and the run
-    directory."""
+    kernel's launches in the training run (the three packs, through the
+    native packer), the run directory and the steady graphs/s."""
     cfg = config_io.loads(QM8_CONFIG.read_text())
     mcfg, dcfg, tcfg = cfg["model"], cfg["dataset"], cfg["train"]
     k, bs = int(mcfg["num_eig_vec"]), int(tcfg["batch_size"])
@@ -745,13 +784,17 @@ def phase_qm8_train(dev, smi: str, tmp: Path) -> tuple[int, Path]:
 
     lanczos_cuda.launches.reset()
     lanczos_cuda.stream_launches.reset()
+    native.fallbacks.reset()
     t0 = time.perf_counter()
     rc = cli.main(["-c", str(copy)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lanczos_cuda.launches.count
+    fallbacks = native.fallbacks.count
     if rc != 0:
         raise SmokeFailure(f"lanczosnet_torch.cli -c {copy} exited {rc}")
+    if fallbacks or not native.available():
+        raise SmokeFailure(f"the packs fell back from the native packer {fallbacks} times")
     run_dir = only_run_dir(tmp / "exp", "_train")
     recs = read_metrics(run_dir)
     losses = [r["loss"] for r in recs if r["event"] == "epoch"]
@@ -787,6 +830,8 @@ def phase_qm8_train(dev, smi: str, tmp: Path) -> tuple[int, Path]:
             raise SmokeFailure(
                 f"packed Ritz pairs differ from the plain version's: {ritz_err}; "
                 f"kernel against plain version in alpha, beta, Q: {tri}")
+
+    host_pack_s = host_pack_seconds(dcfg, dev)
 
     # -t on the best checkpoint
     best = run_dir / "checkpoints" / "best.pt"
@@ -843,6 +888,7 @@ def phase_qm8_train(dev, smi: str, tmp: Path) -> tuple[int, Path]:
         flops_per_graph=flops, mfu=steady * flops / FP32_FLOPS_PER_S,
         mfu_peak="67 TFLOP/s, H100 SXM float32 outside the tensor cores (TF32 off)",
         pack_seconds={s_: r["seconds"] for s_, r in packs.items()}, setup_seconds=setup,
+        native_fallbacks=fallbacks, host_pack_seconds=host_pack_s,
         lanczos_tridiag_launches=launches, ritz_chunks=chunks, test_pack_launches=pack_launches,
         packed_ritz_max_abs_err_vs_plain=ritz_err, served_max_abs_err_vs_restored=serve_err,
         serve_latency=serve_stats, tol=TOL, train_step_ms=step_ms, stage_ms=stages,
@@ -862,20 +908,43 @@ def phase_qm8_train(dev, smi: str, tmp: Path) -> tuple[int, Path]:
         raise SmokeFailure(f"-t gave test MAE {retest}, the training run {test_mae}")
     if served.shape != restored.shape or not (np.isfinite(served).all() and serve_err <= TOL):
         raise SmokeFailure(f"served answers differ from the restored model by {serve_err} > {TOL}")
-    return launches, run_dir
+    return launches, run_dir, steady
 
 
-def qm8_config_copy(name: str, tmp: Path) -> tuple[Path, dict, dict]:
-    """``configs/<name>.yaml`` with the phase's cuts, written to ``tmp``
-    → (its path, the cut config, the cuts as {key: [was, now]})."""
+def host_pack_seconds(dcfg: dict, dev) -> dict:
+    """The padding and operators of the flagship's three splits, by the
+    native packer on the host and by the torch path on the card (each
+    split's graphs drawn first, the card synchronized): seconds a split."""
+    out = {}
+    for i, split in enumerate(("train", "val", "test")):
+        graphs = synthetic_qm8_graphs(int(dcfg[f"num_{split}"]), seed=int(dcfg.get("seed", 7)) + i,
+                                      n_hi=min(int(dcfg["n_max"]), 28))
+        t0 = time.perf_counter()
+        native.pack_arrays(graphs, int(dcfg["n_max"]), kind=dcfg["operator_kind"])
+        t1 = time.perf_counter()
+        host = batch_graphs(graphs, int(dcfg["n_max"]))
+        mask = torch.from_numpy(host["mask"]).to(dev)
+        build_operator_stack(torch.from_numpy(host["adj"]).to(dev), mask,
+                             kind=dcfg["operator_kind"]).cpu()
+        out[split] = {"graphs": len(graphs), "native_s": t1 - t0,
+                      "torch_s": time.perf_counter() - t1}
+    return out
+
+
+def qm8_config_copy(name: str, tmp: Path, extra: dict | None = None,
+                    copy_name: str | None = None) -> tuple[Path, dict, dict]:
+    """``configs/<name>.yaml`` with the phase's cuts (and ``extra`` keys
+    set), written to ``tmp`` → (its path, the cut config, the cuts as
+    {key: [was, now]})."""
     cfg = config_io.loads((QM8_CONFIG.parent / f"{name}.yaml").read_text())
     cut = {}
-    for key, new in {**QM8_MODELS_CUT, "exp_dir": str(tmp / "exp")}.items():
+    for key, new in {**QM8_MODELS_CUT, "exp_dir": str(tmp / "exp"), **(extra or {})}.items():
         section, _, field = key.rpartition(".")
         where = cfg[section] if section else cfg
         cut[key] = [where.get(field), new]
         where[field] = new
-    path = tmp / f"{name}.yaml"
+    tmp.mkdir(parents=True, exist_ok=True)
+    path = tmp / f"{copy_name or name}.yaml"
     path.write_text(config_io.dumps(cfg))
     return path, cfg, cut
 
@@ -1125,6 +1194,161 @@ def phase_qm8_models(dev, smi: str, tmp: Path) -> tuple[dict, dict]:
          test_mae={n: r["test_mae"][0] for n, r in records.items()}, nvidia_smi=smi)
     return ({n: r["lanczos_tridiag_launches"] for n, r in records.items()},
             {n: Path(r["run_dir"]) for n, r in records.items()})
+
+
+def bucketed_ritz_vs_plain(cfg: dict, dev) -> tuple[dict, dict]:
+    """The run's test split packed in its buckets on the card, each
+    bucket's Ritz pairs against the plain version's on its packed
+    operators (one chunk a bucket) → ({bound: [graphs, max abs error]},
+    the packs)."""
+    dcfg, k = cfg["dataset"], int(cfg["model"]["num_eig_vec"])
+    graphs = synthetic_qm8_graphs(int(dcfg["num_test"]), seed=int(dcfg.get("seed", 7)) + 2,
+                                  n_hi=min(int(dcfg["n_max"]), 28))
+    packs, _ = pack_dataset_bucketed(graphs, dcfg["buckets"], standardize=True, num_eig_vec=k,
+                                     device=dev)
+    out = {}
+    for bound, ds in packs.items():
+        s = torch.from_numpy(ds.ops[:, 0]).to(dev).contiguous()
+        m = torch.from_numpy(ds.mask).to(dev)
+        alphas, betas, q, *_ = lanczos_tridiag_resid(s, m, k, EPS)
+        vals, vecs = ritz_from_tridiag(alphas, betas[:, : k - 1], q)
+        err = max(float((vals.cpu() - torch.from_numpy(ds.ritz_val)).abs().max()),
+                  float((vecs.cpu() - torch.from_numpy(ds.ritz_vec)).abs().max()))
+        out[bound] = [len(ds), err]
+    return out, packs
+
+
+def first_pair_step(cfg: dict, packs: dict, dev) -> dict:
+    """One paired step of the flagship at full width (dropout 0, weights
+    from the run's seed) on half-batches of the two smallest buckets, on
+    the card and on the CPU from the same packed arrays → both losses."""
+    mcfg = {**cfg["model"], "dropout": 0.0, "num_atom": NUM_ATOM, "num_task": NUM_TASK}
+    half = int(cfg["train"]["batch_size"]) // 2
+    (ba, da), (bb, db) = list(packs.items())[:2]
+    losses = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(mcfg)
+        model.init_weights(torch.Generator().manual_seed(int(cfg["seed"])))
+        model.to(where)
+        optimizer, scheduler, clip = build_optimizer(model.parameters(), cfg["train"], 1)
+        step = make_pair_step(model, optimizer, scheduler, clip)
+        rows_a, rows_b = np.arange(min(half, len(da))), np.arange(min(half, len(db)))
+        loss = step(to_device(da.slice_batch(rows_a), where), len(rows_a),
+                    to_device(db.slice_batch(rows_b), where), len(rows_b))
+        losses[name] = float(loss)
+    return {"buckets": [ba, bb], "half": half, **losses,
+            "abs_diff": abs(losses["card"] - losses["cpu"])}
+
+
+def phase_qm8_buckets(dev, smi: str, tmp: Path, unbucketed_gps: float) -> int:
+    """The flagship at full width in size buckets [16, 24, 32] with paired
+    steps, ``train.profile`` and ``train.tensorboard``, at the qm8_models
+    cut, through the CLI; ``-t``; one chunk-interleaved epoch without
+    pairing. Returns the shared-memory kernel's launches of the run (its
+    nine bucket packs)."""
+    path, cfg, cut = qm8_config_copy("qm8_lanczos_net", tmp, QM8_BUCKETS_SET)
+    lanczos_cuda.launches.reset()
+    native.fallbacks.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(["-c", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lanczos_cuda.launches.count
+    fallbacks = native.fallbacks.count
+    if rc != 0:
+        raise SmokeFailure(f"lanczosnet_torch.cli -c {path} exited {rc}")
+    run_dir = only_run_dir(tmp / "exp", "_train")
+    recs = read_metrics(run_dir)
+    epochs = [r for r in recs if r["event"] == "epoch"]
+    losses = [r["loss"] for r in epochs]
+    test_mae = [r["mae"] for r in recs if r["event"] == "test"]
+    buckets = {r["split"]: r["buckets"] for r in recs if r["event"] == "pack"}
+
+    # -t on the best checkpoint
+    cfg_t = {**cfg, "test": {**(cfg.get("test") or {}),
+                             "test_model": str(run_dir / "checkpoints" / "best.pt")}}
+    path_t = tmp / "qm8_lanczos_net_buckets_test.yaml"
+    path_t.write_text(config_io.dumps(cfg_t))
+    if cli.main(["-c", str(path_t), "-t"]) != 0:
+        raise SmokeFailure(f"lanczosnet_torch.cli -c {path_t} -t failed")
+    retest = [r["mae"] for r in read_metrics(only_run_dir(tmp / "exp", "_test"))
+              if r["event"] == "test"]
+
+    # one chunk-interleaved epoch, without pairing, profiling or the mirror
+    path_c, _, _ = qm8_config_copy(
+        "qm8_lanczos_net", tmp / "chunked",
+        {**QM8_BUCKETS_SET, "train.bucket_pair": False, "train.profile": False,
+         "train.tensorboard": False, "train.max_epoch": 1})
+    if cli.main(["-c", str(path_c)]) != 0:
+        raise SmokeFailure(f"lanczosnet_torch.cli -c {path_c} exited non-zero")
+    chunked = [r for r in read_metrics(only_run_dir(tmp / "chunked" / "exp", "_train"))
+               if r["event"] == "epoch"]
+
+    busy = device_busy_seconds(run_dir / "trace")
+    tb_files = sorted(p.name for p in (run_dir / "tb").glob("*")) if (run_dir / "tb").exists() \
+        else []
+    ritz, packs = bucketed_ritz_vs_plain(cfg, dev)
+    pair = first_pair_step(cfg, packs, dev)
+    emit("qm8_buckets", config="qm8_lanczos_net.yaml", cut=cut, seconds=wall,
+         graphs_per_bucket=buckets, epoch_loss=losses, test_mae=test_mae, retest_mae=retest,
+         epoch_time_s=[r["epoch_time_s"] for r in epochs],
+         graphs_per_sec=[r["graphs_per_sec"] for r in epochs],
+         chunked_epoch_time_s=[r["epoch_time_s"] for r in chunked],
+         chunked_graphs_per_sec=[r["graphs_per_sec"] for r in chunked],
+         unbucketed_flagship_graphs_per_sec=unbucketed_gps, lanczos_tridiag_launches=launches,
+         native_fallbacks=fallbacks, trace_device_busy_s=busy,
+         tensorboard_writer_made=bool(tb_files), tensorboard_files=tb_files,
+         packed_ritz_vs_plain=ritz, first_pair_step=pair, pair_step_tol=PAIR_STEP_TOL,
+         nvidia_smi=smi)
+    n = QM8_MODELS_CUT["train.max_epoch"]
+    if len(losses) != n or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SmokeFailure(f"qm8_buckets: epoch losses {losses} are not {n} finite, falling "
+                           "numbers")
+    if len(buckets.get("train", {})) < 2 or len(test_mae) != 1 or not np.isfinite(test_mae[0]):
+        raise SmokeFailure(f"qm8_buckets: buckets {buckets} or test MAE {test_mae}")
+    if len(retest) != 1 or abs(retest[0] - test_mae[0]) > 1e-6:
+        raise SmokeFailure(f"qm8_buckets: -t gave test MAE {retest}, the run {test_mae}")
+    if len(chunked) != 1 or not np.isfinite(chunked[0]["loss"]):
+        raise SmokeFailure(f"qm8_buckets: the chunk-interleaved epoch gave {chunked}")
+    if not (run_dir / "trace").is_dir() or not busy:
+        raise SmokeFailure(f"qm8_buckets: the trace of the first epoch shows no device time "
+                           f"({busy})")
+    if any(err != 0.0 for _, err in ritz.values()) or 16 not in ritz:
+        raise SmokeFailure(f"qm8_buckets: packed Ritz pairs against the plain version: {ritz}")
+    if not pair["abs_diff"] <= PAIR_STEP_TOL:
+        raise SmokeFailure(f"qm8_buckets: the first paired step, card against CPU: {pair}")
+    if fallbacks or launches < 3 * len(QM8_BUCKET_BOUNDS):
+        raise SmokeFailure(f"qm8_buckets: {launches} kernel launches for the bucket packs, "
+                           f"{fallbacks} native fallbacks")
+    return launches
+
+
+DRYRUN_RANKS = 4
+
+
+def phase_dryrun(smi: str) -> int:
+    """``python -m lanczosnet_torch.dryrun --ranks 4``, the ranks sharing
+    the card over gloo. Returns the shared-memory kernel's launches over
+    its ranks (their packs and the export round trip)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lanczosnet_torch.dryrun", "--ranks",
+                           str(DRYRUN_RANKS)], capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    found = [json.loads(ln)["dryrun"] for ln in lines if ln.startswith('{"dryrun"')]
+    ok = [ln for ln in lines if ln.startswith(f"dryrun({DRYRUN_RANKS}): ok")]
+    result = found[-1] if found else {}
+    emit("dryrun", ranks=DRYRUN_RANKS, exit_code=proc.returncode, seconds=wall, result=result,
+         ok_line=ok[-1] if ok else None, nvidia_smi=smi)
+    if proc.returncode != 0 or not ok or not result:
+        raise SmokeFailure(f"lanczosnet_torch.dryrun --ranks {DRYRUN_RANKS} exited "
+                           f"{proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    if result["devices"] != ["cuda:0"] * DRYRUN_RANKS:
+        raise SmokeFailure(f"dryrun: the ranks ran on {result['devices']}, not all on cuda:0")
+    if result["export_roundtrip_max_err"] != 0.0:
+        raise SmokeFailure(f"dryrun: the artifact reads {result['export_roundtrip_max_err']}")
+    return int(result["lanczos_launches"])
 
 
 def client_calls(port: int, jobs: list[tuple[str, bytes]], clients: int) -> tuple[float, list, list]:
@@ -2824,8 +3048,9 @@ def main() -> None:
     serve_launches = phase_serve(dev, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as runs:
         runs = Path(runs)
-        pack_launches, flagship_run = phase_qm8_train(dev, smi, runs / "qm8_train")
+        pack_launches, flagship_run, flagship_gps = phase_qm8_train(dev, smi, runs / "qm8_train")
         model_launches, model_runs = phase_qm8_models(dev, smi, runs / "qm8_models")
+        bucket_launches = phase_qm8_buckets(dev, smi, runs / "qm8_buckets", flagship_gps)
         front_launches = phase_serve_fronts(dev, smi, flagship_run, model_runs[QM8_MODELS_CLI],
                                             runs / "serve_fronts")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cora_") as run_dir:
@@ -2839,13 +3064,14 @@ def main() -> None:
         graphs = phase_sparse_citation(dev, smi, Path(runs) / "sparse")
         phase_sharded_citation(dev, smi, Path(runs) / "sharded", graphs)
         parallel_launches = phase_qm8_parallel(dev, smi, Path(runs) / "qm8_parallel")
+    dryrun_launches = phase_dryrun(smi)
     t64, t256 = kern["timing"][SERVE_BATCH], kern["timing"][256]
     ts = stream["timing"]
     no_library = "none: no single PyTorch call computes K-step Lanczos"
     by_path = {"serve": serve_launches, "qm8_train_packs": pack_launches,
                "qm8_models_bf16_run": model_launches[QM8_BF16],
-               "qm8_models_ada_run": model_launches[QM8_ADA], **front_launches,
-               "qm8_parallel": parallel_launches}
+               "qm8_models_ada_run": model_launches[QM8_ADA], "qm8_buckets": bucket_launches,
+               **front_launches, "qm8_parallel": parallel_launches, "dryrun": dryrun_launches}
     print(json.dumps({"kernels": [{
         "name": "lanczos_tridiag",
         "route": "cuda",

@@ -57,6 +57,11 @@
 //   kernel writes beta*valid and q_{j+1} = valid*w/beta only if j+1 < K;
 //   w4 is w before normalization; p1/p2 have K entries a step, zero beyond
 //   row j (there the plain version multiplies zero rows and gets +0).
+// - K may exceed N, as in the TPU kernel: once the basis spans the graph's
+//   nodes, CGS2 leaves w at rounding level, beta <= eps, and every later
+//   row of Q is zero. Nothing in a step reads N for K; only thread r writes
+//   the CGS coefficient r, so K is limited to the block's NP threads (the
+//   wrapper sends a larger K to the plain version by shape, kernel_limit).
 //
 // Build (lanczosnet_torch/ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -232,7 +237,8 @@ int lanczos_tridiag_launch(const void* s, const void* q0, void* alpha, void* bet
                            void* q, void* p1, void* p2, void* w4,
                            int b, int n, int k, float eps, float eps_sq,
                            void* stream, int device) {
-    if (b < 1 || n < 1 || n > kMaxN || k < 1 || k > n) return cudaErrorInvalidValue;
+    if (b < 1 || n < 1 || n > kMaxN || k < 1 || k > lanczos_tridiag_padded_n(n))
+        return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const float* sf = static_cast<const float*>(s);

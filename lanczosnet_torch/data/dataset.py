@@ -6,12 +6,14 @@ a split: graph dicts → one set of padded numpy arrays at a global
 pairs of the channel-0 operator (LanczosNet's D and V) and label
 standardization. Training then only slices these arrays.
 
-The operators are built on ``device`` by ``ops/normalize.py``, and the
-Ritz precompute runs there through ``batched_lanczos_ritz_dispatch``:
-on the card, for graphs of at most 128 padded nodes, that is the CUDA
-Lanczos kernel (``csrc/lanczos_tridiag.cu``), one launch per chunk of
-256 graphs. GPNN's partition (``cluster``) is computed on the host from
-the packed operators. ``save_packed``/``load_packed`` use the JAX
+The operators come from the C++ packer (``data/native.py``, the JAX
+package's default) or are built on ``device`` by ``ops/normalize.py``,
+and the Ritz precompute runs on ``device`` through
+``batched_lanczos_ritz_dispatch``: on the card, for graphs of at most
+128 padded nodes, that is the CUDA Lanczos kernel
+(``csrc/lanczos_tridiag.cu``), one launch per chunk of 256 graphs.
+GPNN's partition (``cluster``) is computed on the host from the packed
+operators. ``save_packed``/``load_packed`` use the JAX
 package's npz keys, so each package reads the other's packed split.
 """
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from lanczosnet_torch.core.graph_batch import GraphBatch, batch_graphs
+from lanczosnet_torch.data import native
 from lanczosnet_torch.data.partition import cluster_of_ops
 from lanczosnet_torch.ops.lanczos_cuda import batched_lanczos_ritz_dispatch
 from lanczosnet_torch.ops.normalize import build_operator_stack
@@ -124,6 +127,7 @@ def pack_dataset(
     stats: Optional[LabelStats] = None,
     standardize: bool = False,
     device: str | torch.device | None = None,
+    use_native: bool = True,
 ) -> PackedDataset:
     """Graph dicts → ``PackedDataset``.
 
@@ -132,16 +136,37 @@ def pack_dataset(
     another). ``num_cluster > 0`` attaches GPNN's spectral partition of
     channel 0 (``data/partition.py``, on the host). ``stats`` reuses the
     training split's standardization; with ``standardize`` and no
-    ``stats`` they are fitted here.
+    ``stats`` they are fitted here. ``use_native`` (the JAX package's
+    default): the padding and the operators come from the C++ packer
+    (``data/native.py``) on the host and go to ``device`` for the Ritz
+    pairs; where it cannot be built they are built on ``device`` in
+    torch, and ``native.fallbacks`` counts the call.
     """
     dev = resolve_device(device)
-    host = batch_graphs(list(graphs), n_max)
-    mask = host["mask"].astype(np.float32)
-    mask_t = torch.from_numpy(mask).to(dev)
-    with torch.inference_mode():
-        ops_t = build_operator_stack(
-            torch.from_numpy(host["adj"]).to(dev), mask_t, kind=operator_kind
-        )
+    graphs = list(graphs)
+    packed = None
+    if use_native and graphs:
+        packed = native.pack_arrays(graphs, n_max, kind=operator_kind)
+    if packed is not None:
+        mask = packed["mask"]
+        mask_t = torch.from_numpy(mask).to(dev)
+        ops_t = torch.from_numpy(packed["ops"]).to(dev)
+        feat = graphs[0].get("node_feat")
+        fc = 0 if feat is None else np.asarray(feat).shape[-1]
+        node_feat = np.zeros((len(graphs), n_max, fc), np.float32)
+        for i, g in enumerate(graphs if fc else ()):
+            nf = np.asarray(g["node_feat"], np.float32)
+            node_feat[i, : nf.shape[0]] = nf
+        host = {"atom_type": packed["atom_type"], "node_feat": node_feat,
+                "label": np.stack([np.asarray(g["label"], np.float32) for g in graphs])}
+    else:
+        host = batch_graphs(graphs, n_max)
+        mask = host["mask"].astype(np.float32)
+        mask_t = torch.from_numpy(mask).to(dev)
+        with torch.inference_mode():
+            ops_t = build_operator_stack(
+                torch.from_numpy(host["adj"]).to(dev), mask_t, kind=operator_kind
+            )
     label = host["label"]
     if standardize:
         if stats is None:

@@ -5,7 +5,8 @@ shared library, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Libraries go to ``build/kernels/`` beside the package,
 a directory ``.gitignore`` lists, named by a hash of the source and the
 flags, so an edited source is never served from a stale build.
-``build_all`` starts one ``nvcc`` per source, all at once.
+``build_all`` starts one ``nvcc`` per source, all at once. ``build_cxx``
+builds a C++ source of ``native/`` with ``g++`` the same way.
 """
 
 from __future__ import annotations
@@ -63,6 +64,26 @@ def library_path(src: Path, flags: tuple[str, ...], build_dir: Path) -> Path:
     hash of both, so an edited source or flag is never served stale."""
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
     return build_dir / f"{src.stem}-{digest[:16]}.so"
+
+
+def build_cxx(name: str, src: Path, flags: tuple[str, ...], build_dir: Path) -> Built:
+    """Compile the C++ source ``src`` with ``g++`` and ``flags`` into
+    ``build_dir`` unless a build of this source and these flags exists
+    (``Built.seconds`` is then 0.0); raises with g++'s output if the
+    build fails."""
+    out = library_path(src, flags, build_dir)
+    if out.exists():
+        return Built(name, out, 0.0, "")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["g++", *flags, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {src}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    return Built(name, out, time.perf_counter() - t0, proc.stdout + proc.stderr)
 
 
 def _target(name: str) -> tuple[Path, Path]:

@@ -14,8 +14,9 @@ kernel's plain version (``ops/lanczos.py``); on a CUDA tensor it
 launches the kernel or raises, unless the caller asks for the plain
 version by name (``impl="plain"``), as the comparisons on the card do.
 
-Past the kernels' limits (``kernel_limit``: N > 16384, or K > 64 at
-N > 128) the default ``impl="auto"`` runs the plain version on either
+Past the kernels' limits (``kernel_limit``: N > 16384, K > 64 at
+N > 128, or at N ≤ 128 a K above the padded N of the shared-memory
+kernel's block) the default ``impl="auto"`` runs the plain version on either
 device and counts the call in ``plain_routes``; ``impl="kernel"``
 raises there.
 
@@ -261,8 +262,10 @@ def stream_plan(b: int, n: int, k: int, device: int) -> StreamPlan:
 
 def check_shapes(s: torch.Tensor, mask: torch.Tensor, k: int) -> None:
     """Raise ``ValueError`` on shapes no path takes: ``s`` ``[B,N,N]``
-    with B ≥ 1, ``mask`` ``[B,N]``, 1 ≤ K ≤ N. The kernels' own limits
-    are ``kernel_limit``'s."""
+    with B ≥ 1, ``mask`` ``[B,N]``, K ≥ 1. K may exceed N, as in the JAX
+    package: the steps after the Krylov space runs out break down (β ≤ ε
+    zeroes the next vector), which gives zero Ritz pairs. The kernels'
+    own limits are ``kernel_limit``'s."""
     if s.dim() != 3 or s.shape[1] != s.shape[2]:
         raise ValueError(f"s must be [B, N, N], got {tuple(s.shape)}")
     b, n, _ = s.shape
@@ -270,21 +273,25 @@ def check_shapes(s: torch.Tensor, mask: torch.Tensor, k: int) -> None:
         raise ValueError(f"mask must be [{b}, {n}], got {tuple(mask.shape)}")
     if b < 1:
         raise ValueError("empty batch")
-    if not 1 <= k <= n:
-        raise ValueError(f"k={k} must be in [1, n={n}]")
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
 
 
 def kernel_limit(n: int, k: int) -> str | None:
     """Why no kernel takes ``n`` nodes and ``k`` steps, or None where one
-    does: N ≤ 128 goes to the shared-memory kernel (any K ≤ N), 128 < N ≤
-    16384 to the streamed kernel (K ≤ 64). Read at call time, so a test
-    may lower the limits."""
+    does: N ≤ 128 goes to the shared-memory kernel (K up to its padded N,
+    ``tridiag_padded_n``: a block has that many threads and thread r
+    writes CGS coefficient r), 128 < N ≤ 16384 to the streamed kernel
+    (K ≤ 64). Read at call time, so a test may lower the limits."""
     if n > STREAM_N_MAX:
         return (f"n={n} > {STREAM_N_MAX}: the streamed Lanczos kernel takes at most "
                 f"{STREAM_N_MAX} nodes (the shared-memory kernel {N_MAX})")
     if n > N_MAX and k > STREAM_K_MAX:
         return (f"k={k} > {STREAM_K_MAX}: the streamed Lanczos kernel (n={n} > {N_MAX}) "
                 f"takes at most {STREAM_K_MAX} steps")
+    if n <= N_MAX and k > tridiag_padded_n(n):
+        return (f"k={k} > {tridiag_padded_n(n)}: the shared-memory Lanczos kernel takes at "
+                f"most its padded n ({tridiag_padded_n(n)} for n={n}) steps")
     return None
 
 

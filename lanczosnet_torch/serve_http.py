@@ -219,7 +219,10 @@ def main(argv=None) -> None:
     [--native] [--device cpu]``."""
     import argparse
 
-    ap = argparse.ArgumentParser(description="LanczosNet model server (PyTorch port)")
+    ap = argparse.ArgumentParser(
+        description="LanczosNet model server (PyTorch port): the stdlib HTTP front, or with "
+                    "--native the C++ epoll front (the port's counterpart of the JAX "
+                    "package's native server)")
     ap.add_argument(
         "--model", action="append", required=True, metavar="NAME=DIR",
         help="model name and a run directory (the port's or the JAX package's) or an "

@@ -37,17 +37,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
-import os
 import struct
-import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 
-from lanczosnet_torch.ops._build import Built, library_path
+from lanczosnet_torch.ops._build import Built, build_cxx
 from lanczosnet_torch.serve_http import ModelServer, decode_request
 
 SOURCE = Path(__file__).resolve().parent / "native" / "servefront.cc"
@@ -63,19 +60,7 @@ def build_front() -> Built:
     """Compile ``native/servefront.cc`` unless a build of this source and
     these flags exists (``Built.seconds`` is then 0.0); raises with g++'s
     output if the build fails."""
-    out = library_path(SOURCE, CXX_FLAGS, BUILD_DIR)
-    if out.exists():
-        return Built("servefront", out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return Built("servefront", out, time.perf_counter() - t0, proc.stdout + proc.stderr)
+    return build_cxx("servefront", SOURCE, CXX_FLAGS, BUILD_DIR)
 
 
 @functools.cache

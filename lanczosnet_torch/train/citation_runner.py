@@ -96,8 +96,12 @@ class CitationRunner:
         self.rank = 0 if self.world is None else self.world.rank
         self.log = get_logger()
         self.run_dir = Path(config["save_dir"])
-        self.metrics = MetricsLogger(self.run_dir / (
-            "metrics.jsonl" if self.rank == 0 else f"metrics.rank{self.rank}.jsonl"))
+        self.metrics = MetricsLogger(
+            self.run_dir / ("metrics.jsonl" if self.rank == 0
+                            else f"metrics.rank{self.rank}.jsonl"),
+            # the TensorBoard mirror is rank 0's
+            tensorboard_dir=(self.run_dir / "tb"
+                             if config["train"].get("tensorboard") and self.rank == 0 else None))
         self.ckpt = Checkpointer(self.run_dir, writer=self.rank == 0)
         self._launches0 = (lanczos_cuda.stream_launches.count, lanczos_cuda.plain_routes.count)
 

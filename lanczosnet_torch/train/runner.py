@@ -46,6 +46,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from lanczosnet_torch.data.buckets import pack_dataset_bucketed
 from lanczosnet_torch.data.dataset import (
     PACK_FORMAT_VERSION,
     PackedDataset,
@@ -70,18 +71,26 @@ from lanczosnet_torch.train.optim import build_optimizer
 from lanczosnet_torch.train.scan_epoch import (
     SHUFFLE_SEED_OFFSET,
     ResidentEval,
+    chunk_schedule,
     device_dataset,
     device_permutation,
     host_permutation,
+    pair_schedule,
     train_epoch,
+    train_pair_piece,
 )
-from lanczosnet_torch.train.step import make_eval_step, make_train_step
+from lanczosnet_torch.train.step import make_eval_step, make_pair_step, make_train_step
 from lanczosnet_torch.train.unported import refuse_unported
 from lanczosnet_torch.utils.device import resolve_device
 from lanczosnet_torch.utils.logger import MetricsLogger, get_logger
+from lanczosnet_torch.utils.profiling import program_cost, trace
 
 SPLITS = ("train", "val", "test")
 SCAN_BYTES_MAX = 2 * 1024**3
+# lanczosnet_tpu/train/runner.py's refusal, where a bucketed run would
+# stream batches from the host
+BUCKETS_RESIDENT_ONLY = ("bucketed datasets run through the scanned trainer only "
+                         "(train.scan_epoch must not be false with dataset.buckets)")
 
 
 def pack_cache_root() -> Path:
@@ -119,8 +128,12 @@ class QM8Runner:
         self.dp_comm = None if self.layout is None else self.layout.dp_comm
         self.log = get_logger()
         self.run_dir = Path(config["save_dir"])
-        self.metrics = MetricsLogger(self.run_dir / (
-            "metrics.jsonl" if self.rank == 0 else f"metrics.rank{self.rank}.jsonl"))
+        self.metrics = MetricsLogger(
+            self.run_dir / ("metrics.jsonl" if self.rank == 0
+                            else f"metrics.rank{self.rank}.jsonl"),
+            # the TensorBoard mirror is rank 0's
+            tensorboard_dir=(self.run_dir / "tb" if tcfg.get("tensorboard") and self.rank == 0
+                             else None))
         self.ckpt = Checkpointer(self.run_dir, writer=self.rank == 0)
         self.seed = int(config.get("seed", 1234))
 
@@ -135,7 +148,7 @@ class QM8Runner:
             self.datasets = self.world.comm.broadcast_object(
                 self._build_datasets(dcfg) if self.rank == 0 else None)
         datasets_s = time.perf_counter() - t0
-        train = self.datasets["train"]
+        train = self.first("train")
         self.stats = train.stats
 
         mcfg.setdefault("num_atom", int(dcfg.get("num_atom", 8)))
@@ -154,22 +167,46 @@ class QM8Runner:
                              datasets_s=datasets_s)
         self.log.info(
             "runner: model=%s devices=%d (dp=%d tp=%d) device=%s batch=%d "
-            "train/val/test=%d/%d/%d n_max=%d", mcfg["name"], self.dp * self.tp, self.dp,
-            self.tp, self.device, self.batch_size, len(train), len(self.datasets["val"]),
-            len(self.datasets["test"]), train.n_max,
+            "train/val/test=%d/%d/%d n_max=%s", mcfg["name"], self.dp * self.tp, self.dp,
+            self.tp, self.device, self.batch_size, *(self.total(s) for s in SPLITS),
+            sorted(self.buckets("train")) if self.bucketed else train.n_max,
         )
 
     # ---------------------------------------------------------------- data
-    def _build_datasets(self, dcfg: Mapping) -> dict[str, PackedDataset]:
+    @property
+    def bucketed(self) -> bool:
+        return isinstance(self.datasets["train"], dict)
+
+    def buckets(self, split: str) -> dict[int, PackedDataset]:
+        """A split's size buckets, ``{bound: PackedDataset}``; an unbucketed
+        split is one bucket at its ``n_max``."""
+        ds = self.datasets[split]
+        return ds if isinstance(ds, dict) else {ds.n_max: ds}
+
+    def first(self, split: str) -> PackedDataset:
+        """A split's first (smallest) bucket, or the split."""
+        return next(iter(self.buckets(split).values()))
+
+    def total(self, split: str) -> int:
+        return sum(len(d) for d in self.buckets(split).values())
+
+    def _build_datasets(self, dcfg: Mapping) -> dict:
         """Three packed splits from ``dataset.source``: ``synthetic``
         (QM8-like graphs from a seed), ``packed`` (npz paths) or
         ``reference_pickle`` (the reference's per-split pickles). What
         this packs persists in the pack cache, keyed by every field that
-        decides its content; ``dataset.pack_cache: false`` opts out."""
+        decides its content; ``dataset.pack_cache: false`` opts out.
+        With ``dataset.buckets`` each split is ``{bound: PackedDataset}``
+        (``data/buckets.py``; not cached, as in the JAX runner), the
+        training split's buckets of at least one batch."""
         source = dcfg.get("source", "synthetic")
         kind = dcfg.get("operator_kind", "sym")
         n_max = int(dcfg.get("n_max", 32))
+        buckets = dcfg.get("buckets")
         if source == "packed":
+            if buckets:
+                raise ValueError("dataset.buckets needs raw graphs; pre-packed npz splits "
+                                 "are already shaped — pack them bucketed instead")
             return {s: load_packed(dcfg[f"{s}_path"]) for s in SPLITS}
         if source == "synthetic":
             counts = {
@@ -197,6 +234,8 @@ class QM8Runner:
         else:
             raise ValueError(f"unknown dataset source {source!r}")
         standardize = bool(dcfg.get("standardize", True))
+        if buckets:
+            return self._pack_bucketed(raw, [int(b) for b in buckets], kind, standardize)
 
         cache_dir = None
         if cache_key is not None and bool(dcfg.get("pack_cache", True)):
@@ -242,9 +281,34 @@ class QM8Runner:
                         os.unlink(tmp)
         return out
 
-    def _loader(self, split: str, shuffle: bool, drop_last: bool) -> BatchLoader:
-        return BatchLoader(self.datasets[split], batch_size=self.batch_size, shuffle=shuffle,
-                           drop_last=drop_last, seed=self.seed, rows=self.rows)
+    def _pack_bucketed(self, raw: Mapping, bounds: list[int], kind: str,
+                       standardize: bool) -> dict:
+        out: dict[str, dict[int, PackedDataset]] = {}
+        stats = None
+        for s in SPLITS:
+            t0 = time.perf_counter()
+            launches = lanczos_cuda.launches.count
+            out[s], stats = pack_dataset_bucketed(
+                raw[s](), bounds, stats=stats, standardize=standardize,
+                # a training bucket smaller than a batch would never give a step
+                min_count=self.batch_size if s == "train" else 0,
+                operator_kind=kind, num_eig_vec=self.num_eig_vec,
+                num_cluster=self.num_cluster, device=self.device,
+            )
+            seconds = time.perf_counter() - t0
+            sizes = {b: len(d) for b, d in out[s].items()}
+            self.log.info("packed %s in buckets %s in %.2fs", s, sizes, seconds)
+            self.metrics.log("pack", split=s, graphs=sum(sizes.values()), seconds=seconds,
+                             buckets={str(b): n for b, n in sizes.items()},
+                             lanczos_launches=lanczos_cuda.launches.count - launches)
+        return out
+
+    def _loader(self, split: str, shuffle: bool, drop_last: bool,
+                ds: Optional[PackedDataset] = None) -> BatchLoader:
+        if ds is None and self.bucketed:
+            raise ValueError(BUCKETS_RESIDENT_ONLY)
+        return BatchLoader(self.datasets[split] if ds is None else ds, batch_size=self.batch_size,
+                           shuffle=shuffle, drop_last=drop_last, seed=self.seed, rows=self.rows)
 
     # ---------------------------------------------------------------- eval
     def _mae(self, esum, count) -> np.ndarray:
@@ -253,20 +317,30 @@ class QM8Runner:
         return self.stats.unstandardize_mae(mae) if self.stats is not None else mae
 
     def _evaluate(self, eval_step, split: str) -> np.ndarray:
-        """Exact per-task MAE over a split, batches streamed from the host."""
+        """Exact per-task MAE over a split (over its buckets, in turn),
+        batches streamed from the host."""
         esum, count = 0.0, 0.0
-        loader = self._loader(split, shuffle=False, drop_last=False)
-        for batch, valid in prefetch_to_device(loader.epoch(), self.device):
-            e, c = eval_step(batch, valid)
-            esum, count = esum + e, count + c
+        for ds in self.buckets(split).values():
+            loader = self._loader(split, shuffle=False, drop_last=False, ds=ds)
+            for batch, valid in prefetch_to_device(loader.epoch(), self.device):
+                e, c = eval_step(batch, valid)
+                esum, count = esum + e, count + c
         if self.dp > 1:
             summed = self.dp_comm.all_reduce(torch.cat([esum, count[None]]))
             esum, count = summed[:-1], summed[-1]
         return self._mae(esum.cpu().numpy(), float(count))
 
-    def _resident_eval(self, split: str) -> ResidentEval:
-        return ResidentEval(device_dataset(self.datasets[split], self.device), self.batch_size,
-                            self.rows, self.dp_comm)
+    def _resident_eval(self, split: str):
+        """``(eval_step) → (esum, count)`` over a split resident on the
+        device, its buckets' sums added."""
+        evals = [ResidentEval(device_dataset(ds, self.device), self.batch_size, self.rows,
+                              self.dp_comm) for ds in self.buckets(split).values()]
+
+        def run(eval_step):
+            sums = [ev(eval_step) for ev in evals]
+            return sum(e for e, _ in sums), sum(c for _, c in sums)
+
+        return run
 
     # ---------------------------------------------------------------- state
     def parameters(self) -> list[torch.nn.Parameter]:
@@ -306,7 +380,7 @@ class QM8Runner:
         """Snapshot metadata: with the label width and the training
         split's stats, ``serve.Predictor.from_run_dir`` rebuilds the head
         and answers in original units."""
-        meta = {"epoch": epoch, "num_task": int(self.datasets["train"].label.shape[-1])}
+        meta = {"epoch": epoch, "num_task": int(self.first("train").label.shape[-1])}
         if val_mae is not None:
             meta["val_mae"] = val_mae
         if self.stats is not None:
@@ -320,6 +394,10 @@ class QM8Runner:
         training split's large fields are under 2 GiB: the resident split
         and one epoch's gathered copy must stay a small part of memory)."""
         mode = self.config["train"].get("scan_epoch", "auto")
+        if self.bucketed:  # buckets are a resident-trainer feature
+            if mode is False:
+                raise ValueError(BUCKETS_RESIDENT_ONLY)
+            return True
         if isinstance(mode, bool):
             return mode
         ds = self.datasets["train"]
@@ -336,10 +414,8 @@ class QM8Runner:
         → (optimizer, scheduler, train_step, first epoch, best val MAE)."""
         tcfg = self.config["train"]
         optimizer, scheduler, clip = build_optimizer(self.parameters(), tcfg, steps_per_epoch)
-        set_dropout_generator(
-            self.model, torch.Generator(device=self.device).manual_seed(self.seed),
-            rows=(0 if self.layout is None else self.layout.d, self.dp),
-        )
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        set_dropout_generator(self.model, self.dropout_generator, rows=self._dropout_rows())
         start_epoch, best_val = 0, float("inf")
         if tcfg.get("is_resume") and self.ckpt.exists("latest"):
             self._load_state(self.ckpt.restore("latest", self.device), optimizer, scheduler)
@@ -352,7 +428,14 @@ class QM8Runner:
             self.log.info("warm-started from %s", tcfg["resume_model"])
         train_step = make_train_step(self.model, optimizer, scheduler, clip, self.dp_comm,
                                      self.tensor_parallel)
+        self.pair_step = make_pair_step(self.model, optimizer, scheduler, clip, self.dp_comm,
+                                        self.tensor_parallel)
         return optimizer, scheduler, train_step, start_epoch, best_val
+
+    def _dropout_rows(self, cut: bool = True) -> tuple[int, int]:
+        """The block of each dropout mask this rank keeps: its rows of the
+        batch, or (``cut`` False: every rank holds the whole batch) all."""
+        return (0 if self.layout is None else self.layout.d, self.dp) if cut else (0, 1)
 
     def _validated(self, epoch: int, val_mae: np.ndarray, best_val: float, state: dict) -> float:
         """Log a validation and keep ``best`` → the best val MAE so far."""
@@ -404,36 +487,87 @@ class QM8Runner:
     def _train_scanned(self) -> dict:
         """The splits resident on the device; the epochs between two
         validations run without a host sync, and the group's losses and
-        validation sums are fetched together."""
+        validation sums are fetched together.
+
+        Size buckets (``dataset.buckets``, more than one training bucket):
+        each epoch runs pieces of a bucket's batches, smallest bucket
+        first before the pieces are shuffled (``scan_epoch.py:
+        chunk_schedule``, ``train.bucket_chunk`` steps a piece), or, with
+        ``train.bucket_pair``, paired steps of two half-batches of two
+        buckets (``pair_schedule``); both schedules come from the host's
+        Philox stream of the run's seed, as in the JAX runner. One
+        training bucket takes the single-shape path."""
         tcfg = self.config["train"]
         bs = int(tcfg["batch_size"])
-        g = len(self.datasets["train"])
-        steps = g // bs
+        train_b = self.buckets("train")
+        sizes = {b: len(d) for b, d in train_b.items()}
+        pairing = bool(tcfg.get("bucket_pair")) and len(train_b) > 1
+        half = bs // 2
+        if pairing and half == 0:
+            raise ValueError("train.bucket_pair needs batch_size >= 2")
+        if pairing:  # two half-batches a step
+            steps = sum(g // half for g in sizes.values()) // 2
+        else:
+            steps = sum(g // bs for g in sizes.values())
         if steps == 0:
-            raise ValueError(f"train.batch_size={bs} exceeds the train split ({g} graphs)")
+            if self.bucketed:
+                raise ValueError(f"train.batch_size={bs} exceeds every train bucket (sizes "
+                                 f"{list(sizes.values())}); shrink the batch or grow the dataset")
+            raise ValueError(
+                f"train.batch_size={bs} exceeds the train split ({self.total('train')} graphs)")
         t0 = time.perf_counter()
         optimizer, scheduler, train_step, epoch, best_val = self._start(steps)
         eval_step = make_eval_step(self.model)
         t1 = time.perf_counter()
-        data = device_dataset(self.datasets["train"], self.device)
+        data = {b: device_dataset(d, self.device) for b, d in train_b.items()}
         val_eval = self._resident_eval("val")
         _sync(self.device)
         self.metrics.log("setup", optimizer_s=t1 - t0, resident_s=time.perf_counter() - t1)
         device_shuffle = bool(tcfg.get("device_shuffle", True))
         gen = torch.Generator(device=self.device).manual_seed(self.seed + SHUFFLE_SEED_OFFSET)
         rng = np.random.Generator(np.random.Philox(self.seed))
+        chunk = int(tcfg.get("bucket_chunk", 4))
+        # a half-batch is cut over dp where it divides, else every rank takes it whole
+        half_cut = half % self.dp == 0
+        half_cols = (mesh.batch_rows(half, self.dp, 0 if self.layout is None else self.layout.d)
+                     if half_cut else slice(None))
+
+        def run_epoch() -> torch.Tensor:
+            if len(data) == 1:
+                ((b, d),) = data.items()
+                perm = (device_permutation(gen, sizes[b], bs, self.device) if device_shuffle
+                        else host_permutation(rng, sizes[b], bs, self.device))
+                return train_epoch(train_step, d, perm, self.rows)
+            if not pairing:
+                return torch.cat([
+                    train_epoch(train_step, data[b], torch.from_numpy(rows).to(self.device),
+                                self.rows)
+                    for b, rows in chunk_schedule(rng, sizes, bs, chunk)])
+            set_dropout_generator(self.model, self.dropout_generator,
+                                  rows=self._dropout_rows(half_cut))
+            try:
+                return torch.cat([
+                    train_pair_piece(self.pair_step, data[ba], torch.from_numpy(ra).to(self.device),
+                                     data[bb], torch.from_numpy(rb).to(self.device), half_cols,
+                                     1 if half_cut else self.dp)
+                    for ba, ra, bb, rb in pair_schedule(rng, sizes, half, chunk)])
+            finally:
+                set_dropout_generator(self.model, self.dropout_generator, rows=self._dropout_rows())
+
         valid_every = int(tcfg.get("valid_epoch", 1))
         max_epoch = int(tcfg.get("max_epoch", 10))
-        self.log.info("resident epochs: %d steps/epoch on %s", steps, self.device)
+        profile_group = epoch if tcfg.get("profile") else -1
+        self.log.info("resident epochs: %d steps/epoch on %s%s", steps, self.device,
+                      f", buckets {sizes}" if self.bucketed else "")
         while epoch < max_epoch:
             group = min(valid_every, max_epoch - epoch)
             t0 = time.perf_counter()
             comm0 = self._comm_stats()
-            losses = []
-            for _ in range(group):
-                perm = (device_permutation(gen, g, bs, self.device) if device_shuffle
-                        else host_permutation(rng, g, bs, self.device))
-                losses.append(train_epoch(train_step, data, perm, self.rows))
+            tracing = epoch == profile_group
+            with trace(self.run_dir / "trace" if tracing else None):
+                losses = [run_epoch() for _ in range(group)]
+                if tracing:
+                    _sync(self.device)
             esum, count = val_eval(eval_step)
             # the group's one host sync
             fetched = torch.cat([torch.stack(losses).flatten(), esum, count[None]]).cpu().numpy()
@@ -469,26 +603,38 @@ class QM8Runner:
         if steps == 0:
             raise ValueError(
                 f"train.batch_size={tcfg['batch_size']} exceeds the train split "
-                f"({len(self.datasets['train'])} graphs)"
+                f"({self.total('train')} graphs)"
             )
         optimizer, scheduler, train_step, start_epoch, best_val = self._start(steps)
         eval_step = make_eval_step(self.model)
         display_iter = int(tcfg.get("display_iter", 50))
         valid_every = int(tcfg.get("valid_epoch", 1))
         max_epoch = int(tcfg.get("max_epoch", 10))
+        profile_epoch = start_epoch + 1 if tcfg.get("profile") else -1
+        cost_logged = False
         for epoch in range(start_epoch, max_epoch):
             t0 = time.perf_counter()
             comm0 = self._comm_stats()
-            for it, (batch, valid) in enumerate(prefetch_to_device(loader.epoch(), self.device)):
-                # drop_last: every batch is whole, its valid graphs the batch size
-                loss = train_step(batch, valid, self.batch_size)
-                if (it + 1) % display_iter == 0 or it + 1 == steps:
-                    lv = float(loss)  # waits for the step: only at display points
-                    step = scheduler.last_epoch
-                    self.log.info("epoch %d it %d | loss %.6f | lr %.2e",
-                                  epoch, it + 1, lv, scheduler.get_last_lr()[0])
-                    self.metrics.log("train", epoch=epoch, step=step, loss=lv)
-            _sync(self.device)
+            with trace(self.run_dir / "trace" if epoch == profile_epoch else None):
+                for it, (batch, valid) in enumerate(
+                        prefetch_to_device(loader.epoch(), self.device)):
+                    # drop_last: every batch is whole, its valid graphs the batch size
+                    if cost_logged:
+                        loss = train_step(batch, valid, self.batch_size)
+                    else:  # the first step, its operations counted as it runs
+                        cost_logged, out = True, []
+                        cost = program_cost(
+                            lambda: out.append(train_step(batch, valid, self.batch_size)))
+                        loss = out[0]
+                        self.log.info("train-step program cost: %s", cost)
+                        self.metrics.log("program_cost", program="train_step", **cost)
+                    if (it + 1) % display_iter == 0 or it + 1 == steps:
+                        lv = float(loss)  # waits for the step: only at display points
+                        step = scheduler.last_epoch
+                        self.log.info("epoch %d it %d | loss %.6f | lr %.2e",
+                                      epoch, it + 1, lv, scheduler.get_last_lr()[0])
+                        self.metrics.log("train", epoch=epoch, step=step, loss=lv)
+                _sync(self.device)
             epoch_time = time.perf_counter() - t0
             gps = steps * int(tcfg["batch_size"]) / epoch_time
             self.metrics.log("epoch", epoch=epoch, epoch_time_s=epoch_time, graphs_per_sec=gps,

@@ -146,3 +146,84 @@ class ResidentEval:
             summed = self.comm.all_reduce(torch.cat([esum, count[None]]))
             esum, count = summed[:-1], summed[-1]
         return esum, count
+
+
+# ---------------------------------------------------------------- size buckets
+def chunk_schedule(rng: np.random.Generator, sizes: dict[int, int], batch_size: int,
+                   chunk: int) -> list[tuple[int, np.ndarray]]:
+    """One epoch over size buckets (``sizes``: graphs a bucket, in bucket
+    order), without pairing: each bucket's shuffled ``[steps, B]`` table
+    cut into pieces of ``chunk`` steps, the pieces shuffled across
+    buckets, so that same-size batches come in short runs. → ``[(bucket,
+    rows [≤chunk, B])]``. Drawn from ``rng`` with the calls, in the order,
+    of ``lanczosnet_tpu/train/runner.py``, so a seed gives JAX's pieces."""
+    pieces = []
+    for bound, g in sizes.items():
+        steps = g // batch_size
+        if steps == 0:
+            continue
+        perm = rng.permutation(g)[: steps * batch_size].reshape(steps, batch_size)
+        for lo in range(0, steps, chunk):
+            pieces.append((bound, perm[lo: lo + chunk]))
+    rng.shuffle(pieces)
+    return pieces
+
+
+def pair_schedule(rng: np.random.Generator, sizes: dict[int, int], half: int,
+                  chunk: int) -> list[tuple[int, np.ndarray, int, np.ndarray]]:
+    """One epoch of paired steps (``train.bucket_pair``): every bucket's
+    shuffled ``[s_b, half]`` half-batches, each step pairing the two
+    buckets with the most half-batches left (a bucket with itself only
+    when it is the last), the steps grouped by bucket pair and cut into
+    pieces of ``chunk``, the pieces shuffled. → ``[(bucket_a, rows_a
+    [≤chunk, half], bucket_b, rows_b)]``; ``rng``'s calls and their order
+    are the JAX runner's."""
+    pools = {}
+    for bound, g in sizes.items():
+        s_b = g // half
+        if s_b:
+            pools[bound] = rng.permutation(g)[: s_b * half].reshape(s_b, half)
+    used = {b: 0 for b in pools}
+    groups: dict[tuple[int, int], list] = {}
+    while True:
+        avail = sorted(((pools[b].shape[0] - used[b], b) for b in pools), reverse=True)
+        if len(avail) > 1 and avail[1][0] > 0:
+            ba, bb = avail[0][1], avail[1][1]
+        elif avail and avail[0][0] >= 2:
+            ba = bb = avail[0][1]
+        else:
+            break
+        ia = pools[ba][used[ba]]
+        used[ba] += 1
+        ib = pools[bb][used[bb]]
+        used[bb] += 1
+        groups.setdefault((ba, bb), []).append((ia, ib))
+    pieces = []
+    for (ba, bb), rows in groups.items():
+        ra = np.stack([r[0] for r in rows])
+        rb = np.stack([r[1] for r in rows])
+        for lo in range(0, ra.shape[0], chunk):
+            pieces.append((ba, ra[lo: lo + chunk], bb, rb[lo: lo + chunk]))
+    rng.shuffle(pieces)
+    return pieces
+
+
+def train_pair_piece(
+    pair_step: Callable[..., torch.Tensor],
+    data_a: GraphBatch, rows_a: torch.Tensor,
+    data_b: GraphBatch, rows_b: torch.Tensor,
+    cols: slice = slice(None), replicas: int = 1,
+) -> torch.Tensor:
+    """Run a piece of paired steps: step s takes the half-batches
+    ``rows_a[s]`` of ``data_a`` and ``rows_b[s]`` of ``data_b``
+    (``cols``: a data-parallel rank's block of each half; ``replicas``:
+    how many ranks hold the same half, whose losses are then each the
+    share). → the losses ``[steps]`` on the device."""
+    half_a, half_b = rows_a.shape[1], rows_b.shape[1]
+    batches_a = shuffle_epoch(data_a, rows_a[:, cols])
+    batches_b = shuffle_epoch(data_b, rows_b[:, cols])
+    return torch.stack([
+        pair_step(batch_at(batches_a, s), half_a * replicas, batch_at(batches_b, s),
+                  half_b * replicas)
+        for s in range(rows_a.shape[0])
+    ])

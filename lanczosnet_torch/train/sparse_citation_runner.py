@@ -176,8 +176,12 @@ class SparseCitationRunner:
         self.rank = 0 if self.world is None else self.world.rank
         self.log = get_logger()
         self.run_dir = Path(config["save_dir"])
-        self.metrics = MetricsLogger(self.run_dir / (
-            "metrics.jsonl" if self.rank == 0 else f"metrics.rank{self.rank}.jsonl"))
+        self.metrics = MetricsLogger(
+            self.run_dir / ("metrics.jsonl" if self.rank == 0
+                            else f"metrics.rank{self.rank}.jsonl"),
+            # the TensorBoard mirror is rank 0's
+            tensorboard_dir=(self.run_dir / "tb"
+                             if config["train"].get("tensorboard") and self.rank == 0 else None))
         self.ckpt = Checkpointer(self.run_dir, writer=self.rank == 0)
         mcfg = dict(config["model"])
         self.seconds = {}

@@ -56,6 +56,52 @@ def clip_grad_norm(params: Sequence[torch.Tensor], max_norm: float, cut: Sequenc
     return norm
 
 
+def _make_update(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler],
+    grad_clip: Optional[float],
+    dp_comm: Optional[Comm],
+    tensor_parallel: Optional[TensorParallel],
+) -> Callable[..., torch.Tensor]:
+    """``(parts) → loss`` for ``parts``, a sequence of ``(batch, valid,
+    count, weight)``: each part's forward and backward in training mode,
+    the gradients accumulated with the parts' weights, then one update
+    (the dp all-reduce, the clip, the optimizer and the schedule), as
+    ``make_train_step`` documents. The loss is the weighted sum."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    dp = dp_comm if dp_comm is not None and dp_comm.size > 1 else None
+
+    def update(parts) -> torch.Tensor:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        total = None
+        for batch, valid, count, weight in parts:
+            if dp is not None and count is None:
+                raise ValueError("a data-parallel step needs the whole batch's valid count")
+            with bf16_f32_accumulation():
+                loss = weight * weighted_mae(model(batch), batch.label, valid, count)
+                loss.backward()  # a weight of 1.0 changes no bit
+            total = loss.detach() if total is None else total + loss.detach()
+        loss = total
+        if dp is not None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            *summed, loss = dp.all_reduce_flat([*grads, loss.reshape(1)])
+            for p, g in zip(params, summed):
+                p.grad = g
+            loss = loss[0]
+        if grad_clip and tensor_parallel is not None:
+            clip_grad_norm(params, float(grad_clip), tensor_parallel.cut(), tensor_parallel.comm)
+        elif grad_clip:
+            torch.nn.utils.clip_grad_norm_(model.parameters(), float(grad_clip))
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return loss
+
+    return update
+
+
 def make_train_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -76,35 +122,42 @@ def make_train_step(
     and the loss returned is the whole batch's. ``tensor_parallel``: the
     model is cut over its ``tp`` group; the optimizer holds its
     ``parameters()``."""
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    dp = dp_comm if dp_comm is not None and dp_comm.size > 1 else None
+    update = _make_update(model, optimizer, scheduler, grad_clip, dp_comm, tensor_parallel)
 
     def train_step(batch: GraphBatch, valid: torch.Tensor,
                    count: Optional[float] = None) -> torch.Tensor:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        if dp is not None and count is None:
-            raise ValueError("a data-parallel step needs the whole batch's valid count")
-        with bf16_f32_accumulation():
-            loss = weighted_mae(model(batch), batch.label, valid, count)
-            loss.backward()
-        loss = loss.detach()
-        if dp is not None:
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            *summed, loss = dp.all_reduce_flat([*grads, loss.reshape(1)])
-            for p, g in zip(params, summed):
-                p.grad = g
-            loss = loss[0]
-        if grad_clip and tensor_parallel is not None:
-            clip_grad_norm(params, float(grad_clip), tensor_parallel.cut(), tensor_parallel.comm)
-        elif grad_clip:
-            torch.nn.utils.clip_grad_norm_(model.parameters(), float(grad_clip))
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        return loss
+        return update([(batch, valid, count, 1.0)])
 
     return train_step
+
+
+def make_pair_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+    grad_clip: Optional[float] = None,
+    dp_comm: Optional[Comm] = None,
+    tensor_parallel: Optional[TensorParallel] = None,
+) -> Callable[..., torch.Tensor]:
+    """``(batch_a, count_a, batch_b, count_b) → loss``: one optimizer step
+    on two half-batches of two size buckets, as the JAX package's
+    ``make_scan_pair_epoch`` body takes it. Each half's loss and gradient
+    are weighted by its share of the pair, ``ha/(ha+hb)`` with ``ha`` and
+    ``hb`` the halves' graph counts (``count_a``, ``count_b``: what each
+    half's loss divides by, as in ``make_train_step``), so the step's
+    batch mixes graph sizes. Every graph of a half is real."""
+    update = _make_update(model, optimizer, scheduler, grad_clip, dp_comm, tensor_parallel)
+
+    def pair_step(batch_a: GraphBatch, count_a: float, batch_b: GraphBatch,
+                  count_b: float) -> torch.Tensor:
+        wa = count_a / (count_a + count_b)
+        return update([
+            (batch_a, torch.ones(batch_a.mask.shape[0], device=batch_a.mask.device), count_a, wa),
+            (batch_b, torch.ones(batch_b.mask.shape[0], device=batch_b.mask.device), count_b,
+             1.0 - wa),
+        ])
+
+    return pair_step
 
 
 def make_eval_step(

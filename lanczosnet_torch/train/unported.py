@@ -3,17 +3,14 @@ runner does not read.
 
 The three runners check a config against two tables before they build
 anything. ``NOT_PORTED``: an option the port would ignore raises
-``NotImplementedError``, naming the ROADMAP item that ports it.
-``NOT_READ``: an option the JAX runner itself never reads raises
-``ValueError``, since ignoring it would run another experiment than
-the config says (the dense citation runner shards node rows only, so
-``train.tp`` and ``train.shard`` mean nothing to it). ``train.prng_impl``
-is accepted: it picks JAX's random-bit generator and has no torch
-counterpart. Sharding is ported for every runner:
-``SparseCitationRunner`` (``train.num_devices`` > 1, ``train.shard``;
-A11), ``QM8Runner`` (``train.num_devices`` > 1, ``train.tp`` > 1; the
-first half of A11b) and ``CitationRunner`` (``train.num_devices`` > 1,
-by node rows; the second half).
+``NotImplementedError``, naming the ROADMAP item that ports it; every
+option is ported now, so it is empty. ``NOT_READ``: an option the JAX
+runner itself never reads raises ``ValueError``, since ignoring it would
+run another experiment than the config says (the dense citation runner
+shards node rows only, so ``train.tp`` and ``train.shard`` mean nothing
+to it; neither citation runner buckets, pairs or profiles).
+``train.prng_impl`` is accepted: it picks JAX's random-bit generator and
+has no torch counterpart.
 """
 
 from __future__ import annotations
@@ -21,14 +18,10 @@ from __future__ import annotations
 from typing import Mapping, Optional
 
 # (section, key, refused when, the ROADMAP item that ports it)
-NOT_PORTED = (
-    ("dataset", "buckets", bool, "A12 (data/buckets.py)"),
-    ("train", "bucket_pair", bool, "A12 (data/buckets.py)"),
-    ("train", "profile", bool, "A12"),
-    ("train", "tensorboard", bool, "A12"),
-)
+NOT_PORTED: tuple = ()
 
 _NODES_ONLY = "the dense citation runner shards node rows only (train.num_devices)"
+_QM8_ONLY = "only the QM8 runner reads it (size buckets, paired steps, profiling)"
 # (section, key, refused when, runner, why): what that runner's JAX
 # counterpart never reads
 NOT_READ = (
@@ -38,6 +31,10 @@ NOT_READ = (
      "the sparse citation runner shards the graph only (train.shard)"),
     ("train", "shard", bool, "QM8Runner",
      "the QM8 runner shards batches and layers (train.num_devices, train.tp)"),
+    *((section, key, bool, runner, _QM8_ONLY)
+      for runner in ("CitationRunner", "SparseCitationRunner")
+      for section, key in (("dataset", "buckets"), ("train", "bucket_pair"),
+                           ("train", "profile"))),
 )
 
 

@@ -298,11 +298,14 @@ def test_citation_runner_needs_a_card_unless_told(tmp_path, monkeypatch):
      ("train", "profile", True, "A12"), ("train", "tensorboard", True, "A12")],
 )
 def test_refused_options_name_their_roadmap_item(tmp_path, section, key, value, item):
-    """The options the JAX citation runner honours and the port does not
-    run yet raise before anything is built, as in ``QM8Runner``. Since
+    """Options raise before anything is built, as in ``QM8Runner``. Since
     A11b ``train.num_devices`` runs (outside a process group of its size
     it raises), and ``train.tp``, which the JAX runner never reads,
-    raises ``ValueError``: the dense runner shards node rows only."""
+    raises ``ValueError``: the dense runner shards node rows only. Of
+    A12, the JAX citation runner never reads ``dataset.buckets``,
+    ``train.bucket_pair`` or ``train.profile``, which raise ``ValueError``
+    now (``train/unported.py:NOT_READ``); it mirrors its metrics into
+    TensorBoard, and so does the port."""
     cfg = runner_config(tmp_path / "run")
     cfg[section] = {**cfg.get(section, {}), key: value}
     if key == "num_devices":
@@ -313,7 +316,13 @@ def test_refused_options_name_their_roadmap_item(tmp_path, section, key, value, 
         with pytest.raises(ValueError, match="train.tp.*shards node rows only"):
             CitationRunner(cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"{section}.{key}.*{item}"):
+    assert item == "A12"
+    if key == "tensorboard":
+        runner = CitationRunner(cfg, device="cpu")
+        runner.metrics.log("epoch", epoch=0, loss=1.0)
+        assert runner.metrics.tensorboard and any((tmp_path / "run" / "tb").iterdir())
+        return
+    with pytest.raises(ValueError, match=f"{section}.{key}.*only the QM8 runner reads it"):
         CitationRunner(cfg, device="cpu")
 
 

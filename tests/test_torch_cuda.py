@@ -14,7 +14,8 @@ shared-memory kernel (N ≤ 128) is held to exact agreement; the streamed
 kernel (N > 128) to its contract, 1e-4 on all six outputs and the same
 breakdown step, and the test prints the error it found. Packing on the
 card launches the shared-memory kernel once per chunk of 256 graphs and
-gives the plain version's Ritz pairs exactly; ``QM8Runner``'s resident
+gives the plain version's Ritz pairs exactly (bucketed too, with more
+Lanczos steps than nodes at the smallest bound); ``QM8Runner``'s resident
 epochs and its per-step path agree on the card (1e-6). Each dense model
 of the QM8 configs, at full width, gives the CPU's outputs and
 gradients on the card (1e-4, float32, gradients relative to each
@@ -100,6 +101,10 @@ CASES = {
     "n128-k20": (lambda: spd_case(2, 4, 128, [128, 100, 7, 1]), 20),
     "n128-k128": (lambda: spd_case(3, 1, 128, [128]), 128),
     "zero": (lambda: (torch.zeros(2, 8, 8), torch.tensor([[1.0] * 3 + [0.0] * 5, [0.0] * 8])), 4),
+    # more steps than nodes, as the JAX package runs them (a bucket bound under K)
+    "n8-k9": (lambda: spd_case(8, 2, 8, [8, 5]), 9),
+    "n16-k20": (lambda: spd_case(9, 4, 16, [16, 12, 3, 16]), 20),
+    "n24-k20": (lambda: spd_case(10, 3, 24, [24, 17, 9]), 20),
 }
 
 
@@ -363,6 +368,26 @@ def test_pack_on_the_card_runs_the_kernel_per_chunk(card):
         real = min(256, 300 - lo)
         assert torch.equal(d[:real].cpu(), torch.from_numpy(got.ritz_val[lo: lo + real]))
         assert torch.equal(v[:real].cpu(), torch.from_numpy(got.ritz_vec[lo: lo + real]))
+
+
+def test_bucketed_pack_on_the_card_gives_the_plain_versions_ritz_pairs(card):
+    """Buckets [16, 24, 32] under K=20: one launch a bucket (each under a
+    chunk), the 16 bound with more steps than nodes; each bucket's Ritz
+    pairs equal the plain version's on its packed operators exactly."""
+    from lanczosnet_torch.data.buckets import pack_dataset_bucketed
+
+    graphs = synthetic_qm8_graphs(120, seed=6, n_lo=4, n_hi=28)
+    before = lanczos_cuda.launches.count
+    packs, _ = pack_dataset_bucketed(graphs, [16, 24, 32], standardize=True, num_eig_vec=20,
+                                     device=card)
+    assert sorted(packs) == [16, 24, 32] and lanczos_cuda.launches.count == before + 3
+    for bound, ds in packs.items():
+        s = torch.from_numpy(ds.ops[:, 0]).to(card)
+        m = torch.from_numpy(ds.mask).to(card)
+        a, b, q, *_ = lanczos_tridiag_resid(s, m, 20)
+        d, v = ritz_from_tridiag(a, b[:, :19], q)
+        assert torch.equal(d.cpu(), torch.from_numpy(ds.ritz_val)), bound
+        assert torch.equal(v.cpu(), torch.from_numpy(ds.ritz_vec)), bound
 
 
 def tiny_qm8_config(save_dir, **train) -> dict:

@@ -6,7 +6,9 @@ imported JAX already (tests/conftest.py).
 """
 
 import ast
+import importlib
 import subprocess
+import tomllib
 import sys
 from pathlib import Path
 
@@ -18,7 +20,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "lanczosnet_tp
 EXPECTED = ("lanczosnet_torch.serve", "lanczosnet_torch.serve_http",
             "lanczosnet_torch.serve_native", "lanczosnet_torch.export",
             "lanczosnet_torch.train.flax_msgpack", "lanczosnet_torch.train.unported",
-            "lanczosnet_torch.train.checkpoint", "lanczosnet_torch.ops.lanczos_cuda")
+            "lanczosnet_torch.train.checkpoint", "lanczosnet_torch.ops.lanczos_cuda",
+            "lanczosnet_torch.dryrun", "lanczosnet_torch.data.buckets",
+            "lanczosnet_torch.data.native", "lanczosnet_torch.utils.profiling")
 
 
 def port_sources() -> list[Path]:
@@ -59,3 +63,20 @@ def test_port_sources_import_nothing_forbidden():
                 for n in names if n.split(".")[0] in FORBIDDEN
             ]
     assert not offenders
+
+
+def test_console_scripts_name_the_port_mains():
+    """``[project.scripts]``: the JAX package's three entries as they were
+    and the port's four beside them, each a callable main."""
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())["project"]["scripts"]
+    assert {k: v for k, v in scripts.items() if "torch" not in k} == {
+        "lanczosnet-run": "lanczosnet_tpu.cli:main",
+        "lanczosnet-serve": "lanczosnet_tpu.serve_http:main",
+        "lanczosnet-export": "lanczosnet_tpu.export:main"}
+    port = {k: v for k, v in scripts.items() if "torch" in k}
+    assert sorted(port) == ["lanczosnet-torch-dryrun", "lanczosnet-torch-export",
+                            "lanczosnet-torch-run", "lanczosnet-torch-serve"]
+    for target in port.values():
+        module, name = target.split(":")
+        assert module.startswith("lanczosnet_torch.")
+        assert callable(getattr(importlib.import_module(module), name))

@@ -428,15 +428,28 @@ def test_runner_paths_agree_and_device_shuffle_trains(tmp_path, pack_cache):
 def test_refused_options_name_their_roadmap_item(tmp_path, section, key, value, item):
     """``train.tp`` and ``train.num_devices`` run since A11b's first half
     (``tests/test_torch_tensor_parallel.py``): outside a process group of
-    the mesh's size they raise; the other options name their item."""
+    the mesh's size they raise. The A12 options raised naming their item
+    until they were ported; each builds and trains now (``bucket_pair``
+    over buckets [8, 16]), and leaves what it makes in the run
+    directory."""
     cfg = tiny_config(tmp_path / "run")
     cfg[section] = {**cfg[section], key: value}
     if key in ("tp", "num_devices"):
         with pytest.raises(RuntimeError, match="not inside a process group"):
             QM8Runner(cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"{section}.{key}.*{item}"):
-        QM8Runner(cfg, device="cpu")
+    assert item == "A12"
+    if key == "bucket_pair":
+        cfg["dataset"] = {**cfg["dataset"], "buckets": [8, 16]}
+    runner = QM8Runner(cfg, device="cpu")
+    assert np.isfinite(runner.train()["test_mae"])
+    run = tmp_path / "run"
+    if section == "dataset" or key == "bucket_pair":
+        assert runner.bucketed and sorted(runner.buckets("train")) == [8, 16]
+    if key == "profile":
+        assert (run / "trace" / "trace.json").exists()
+    if key == "tensorboard":
+        assert runner.metrics.tensorboard and any((run / "tb").iterdir())
 
 
 def test_refused_runners_and_sources(tmp_path):

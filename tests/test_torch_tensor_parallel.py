@@ -22,7 +22,8 @@ rank; ``tests/torch_rank_workers.py:mesh_cases``), two launches:
   ``cli.run`` in each rank (train, ``-t``, resume);
 - four ranks: resident epochs with the device shuffle at dp=4 against
   one device (the counterpart of ``tests/test_parallel.py:79``),
-  bfloat16 at dp=4 (loss 1e-4 relative), and the runner at tp=4.
+  bfloat16 at dp=4 (loss 1e-4 relative), the runner at tp=4, and the
+  runner over size buckets with paired steps at dp=2 × tp=2.
 
 A run's checkpoint is the one-device format: a one-device ``QM8Runner``
 and ``Predictor.from_run_dir`` test it to the ranks' test MAE (1e-6).
@@ -180,10 +181,20 @@ def cycle_spec(tmp, name: str, **train) -> str:
     return str(path)
 
 
-def launch(tmp, world: int, cases: list, cycle: str) -> list[dict]:
+def bucketed_spec(tmp, name: str, **train) -> str:
+    """``qm8_config`` in size buckets [8, 12], paired steps at batch 6."""
+    cfg = {**qm8_config(tmp / "exp", name, bucket_pair=True, batch_size=6, **train),
+           "save_dir": str(tmp / name)}
+    cfg["dataset"]["buckets"] = [8, 12]
+    path = tmp / f"{name}.yaml"
+    path.write_text(dumps(cfg))
+    return str(path)
+
+
+def launch(tmp, world: int, cases: list, cycle: str, bucketed: str | None = None) -> list[dict]:
     spec = tmp / f"spec{world}.pt"
     torch.save({"cases": [{k: v for k, v in c.items() if k != "flax"} for c in cases],
-                "cycle": cycle}, spec)
+                "cycle": cycle, "bucketed": bucketed}, spec)
     out = tmp / f"out{world}"
     out.mkdir()
     code = multihost.launch(world, "torch_rank_workers:mesh_cases", [str(spec), str(out)],
@@ -223,7 +234,8 @@ def four(tmp_path_factory):
                 "train": adam(1e-2), "seed": 7}
     resident["model"] = {**cfg, "dropout": 0.1}
     cases = [resident, case("bf16_dp", "LanczosNet", (4, 1), steps=2, dtype="bfloat16")]
-    ranks = launch(tmp, 4, cases, cycle_spec(tmp, "tp4"))
+    ranks = launch(tmp, 4, cases, cycle_spec(tmp, "tp4"),
+                   bucketed_spec(tmp, "bucketed", num_devices=4, tp=2))
     one = {c["key"]: workers.CASES[c["kind"]](c) for c in cases}
     return {c["key"]: c for c in cases}, ranks, one, tmp
 
@@ -345,6 +357,29 @@ def test_bfloat16_under_dp_matches_one_device(four):
     for res in ranks:
         for a, b in zip(res["bf16_dp"]["losses"], one["bf16_dp"]["losses"]):
             assert np.isfinite(a) and a == pytest.approx(b, rel=1e-4)
+
+
+def test_bucketed_paired_runner_at_dp2_tp2_matches_one_device(four):
+    """Size buckets with paired steps at dp=2 × tp=2, batch 6: the half-
+    batches of 3 do not divide over dp, so every dp rank takes each half
+    whole and its loss is its share (the JAX runner replicates them).
+    Every epoch's loss 1e-5 relative, the test MAE and ``-t`` 1e-6 from
+    one device's run of the same config."""
+    _, ranks, _, tmp = four
+    cfg = loads((tmp / "bucketed.yaml").read_text())
+    one_dir = tmp / "bucketed_one"
+    one = QM8Runner({**cfg, "save_dir": str(one_dir),
+                     "train": {**cfg["train"], "tp": 1, "num_devices": 1}}, "cpu")
+    assert len(one.buckets("train")) == 2
+    want = one.train()
+    setup = events(tmp / "bucketed" / "metrics.rank1.jsonl", "setup")[0]
+    assert (setup["dp"], setup["tp"]) == (2, 2)
+    got = [r["loss"] for r in events(tmp / "bucketed" / "metrics.jsonl", "epoch")]
+    np.testing.assert_allclose(got, [r["loss"] for r in events(one_dir / "metrics.jsonl", "epoch")],
+                               rtol=1e-5)
+    for res in ranks:
+        assert res["bucketed"]["train"]["test_mae"] == pytest.approx(want["test_mae"], abs=1e-6)
+        assert res["bucketed"]["test"]["test_mae"] == pytest.approx(want["test_mae"], abs=1e-6)
 
 
 def events(path: Path, name: str) -> list[dict]:

@@ -380,6 +380,8 @@ def mesh_cases(spec_path: str, out_dir: str) -> int:
     out["world"] = world.describe()
     if spec.get("cycle"):
         out["cycle"] = run_cycle(spec["cycle"])
+    if spec.get("bucketed"):
+        out["bucketed"] = run_bucketed(spec["bucketed"])
     torch.save(out, Path(out_dir) / f"rank{world.rank}.pt")
     return 0
 
@@ -401,6 +403,17 @@ def run_cycle(config_path: str) -> dict:
                                                   "max_epoch": base.train.max_epoch + 1}})
     codes["resume"] = cli.run(resumed, False, "INFO", "cpu")
     return {"codes": codes, "writes": [path for path, _ in writes]}
+
+
+def run_bucketed(config_path: str) -> dict:
+    """Train a bucketed QM8 config in each rank, then test its best
+    checkpoint: the results of ``train()`` and ``test()``."""
+    from lanczosnet_torch.train.runner import QM8Runner
+    from lanczosnet_torch.utils.config import loads
+
+    cfg = loads(Path(config_path).read_text())
+    trained = QM8Runner(cfg, "cpu").train()
+    return {"train": trained, "test": QM8Runner(cfg, "cpu").test()}
 
 
 # ------------------------------------------------ the node-sharded citation runner
