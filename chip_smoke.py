@@ -238,13 +238,15 @@ from lanczosnet_torch.data.qm8 import NUM_ATOM, NUM_TASK, synthetic_qm8_graphs
 from lanczosnet_torch.export import export_predictor, load_predictor
 from lanczosnet_torch.models import build_model
 from lanczosnet_torch.models.sparse_nodes import build_sparse_model
-from lanczosnet_torch.ops.precision import bf16_f32_accumulation
+from lanczosnet_torch.ops.eigh import eigh_dispatch, jacobi_sweeps
+from lanczosnet_torch.ops.precision import bf16_f32_accumulation, f32_matmul
 from lanczosnet_torch.ops import _build, lanczos_cuda
 from lanczosnet_torch.ops.lanczos import (
     lanczos_adjoint_bwd,
     lanczos_start_vector,
     lanczos_tridiag_resid,
     lanczos_tridiag_resid_stream,
+    tridiag_matrix,
 )
 from lanczosnet_torch.ops.lanczos_cuda import (
     LanczosTridiag,
@@ -271,7 +273,12 @@ from lanczosnet_torch.train.sparse_citation_runner import (
 )
 from lanczosnet_torch.train.step import make_pair_step, make_train_step, weighted_mae
 from lanczosnet_torch.utils import config as config_io
-from lanczosnet_torch.utils.profiling import device_busy_seconds
+from lanczosnet_torch.utils.poison import poisoned_lanczos_check
+from lanczosnet_torch.utils.profiling import (
+    FP32_FLOPS_PER_S,
+    device_busy_seconds,
+    qm8_train_flops_per_graph,
+)
 
 # configs/qm8_lanczos_net.yaml, its model and dataset sections as written
 # (a test holds these literals to the file; the card has no YAML reader)
@@ -363,10 +370,9 @@ ARTIFACT_TOL = 1e-5  # the artifact against the Predictor it was exported from
 # 0.46–1.5% for the nine models (tests/test_torch_sparse_models.py)
 SPARSE_BF16_REL_DISTANCE = 0.02
 
-# H100 SXM data sheet (at the 700 W limit): HBM rate and float32 rate
-# outside the tensor cores
+# H100 SXM data sheet (at the 700 W limit): HBM rate; the float32 rate
+# outside the tensor cores is utils/profiling.py's FP32_FLOPS_PER_S
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 # a dependent float32 add issues 4 cycles after the one it waits for
 FADD_CHAIN_CYCLES = 4
 # Not of this run: the kernels' times before their redesign, as PERF.md
@@ -698,31 +704,6 @@ def phase_serve(dev, smi: str) -> int:
     if launches < 1:
         raise SmokeFailure("the serving run never launched the Lanczos kernel")
     return launches
-
-
-def qm8_train_flops_per_graph(hidden, n, k, short, long_, edge_types, tasks, filter_hidden) -> float:
-    """Model FLOPs of one training step per graph (the analytic count of
-    ``bench.py:analytic_train_flops_per_graph``): 2 FLOPs a multiply-add
-    in the forward, times 3 for forward and backward; padding waste not
-    counted. At the flagship (hidden 128×3, N=32, K=20, short [1,2,3],
-    long [5,7,10,20,30], 4 edge types, 16 tasks, filter width 16) a
-    layer has 3·32²·128 (short chain) + 20·32·128 + 32·20·5·128 (VᵀX
-    and the long scales) + 5·20·48 (filter MLPs) + 4·32²·128 (edge
-    hops) + 32·(128·13)·128 (the layer's Dense) = 8,229,568 multiply-adds;
-    three layers and the readout's 32·128·17 give a forward of
-    49,516,672 FLOPs, and a step 148,550,016 FLOPs a graph."""
-    f = hidden[0]
-    parts = 1 + len(short) + len(long_) + edge_types
-    macs = 0.0
-    for dim in hidden:
-        macs += max(short) * n * n * f
-        macs += k * n * f + n * k * len(long_) * f
-        macs += len(long_) * k * (2 * filter_hidden + filter_hidden)
-        macs += edge_types * n * n * f
-        macs += n * (f * parts) * dim
-        f = dim
-    macs += n * f * (tasks + 1)
-    return 3.0 * 2.0 * macs
 
 
 def qm8_stage_breakdown(model, optimizer, batch, valid, reps: int = 20) -> dict:
@@ -2195,11 +2176,12 @@ def ten_million_checks(runner) -> dict:
     return out
 
 
-def phase_sparse_citation(dev, smi: str, tmp: Path) -> dict:
+def phase_sparse_citation(dev, smi: str, tmp: Path) -> tuple[dict, dict]:
     """The twelve single-device sparse configs through
     ``SparseCitationRunner``, each graph made once for the configs that
-    share its ``dataset`` section. → {its dataset's key: the last graph}."""
-    graphs = {}
+    share its ``dataset`` section. → ({its dataset's key: the last
+    graph}, {config: the run's peak MB over set-up and training})."""
+    graphs, peaks = {}, {}
     for name in SPARSE_CITATION_CONFIGS:
         dcfg = config_io.loads((QM8_CONFIG.parent / f"{name}.yaml").read_text())["dataset"]
         key = json.dumps(dcfg, sort_keys=True)
@@ -2219,9 +2201,10 @@ def phase_sparse_citation(dev, smi: str, tmp: Path) -> dict:
         if name == "ten_million_sparse_lanczos_net":
             out.update(ten_million_checks(runner))
         emit("sparse_citation", **out, nvidia_smi=smi)
+        peaks[name] = out["peak_memory_mb_train"]
         del runner
         torch.cuda.empty_cache()
-    return {k: g for k, (g, _) in graphs.items()}
+    return {k: g for k, (g, _) in graphs.items()}, peaks
 
 
 # the 10M config first: it reuses the graph the single-device phase drew
@@ -3039,6 +3022,243 @@ def phase_node_sharded_citation(dev, smi: str, tmp: Path, one_device: dict,
     return launches
 
 
+# ------------------------------------ the Ritz eigensolver and the tools
+EIGH_BATCHES = (SERVE_BATCH, 256)
+EIGH_TOL = 1e-4  # Jacobi against cuSOLVER: Ritz values, V tanh(D) Vᵀ, predictions
+EIGH_SLEEP_CYCLES = 100_000_000  # a sleeping kernel queued ahead of a call: about 50 ms
+PROFILE_STEP_EPOCHS = 2  # the depth cut: of torch_profile_step.py's 10
+PROFILE_SUM_RTOL = 0.01  # the table's self times against the trace's busy time
+MEM_PROBE_CONFIG = "ten_million_sparse_lanczos_net"
+MEM_PROBE_RTOL = 0.15  # the probe's train-step peak against the full run's
+
+
+def script(name: str):
+    """A module of ``scripts/``, loaded from its file (the folder is no
+    package)."""
+    import importlib.util
+
+    path = QM8_CONFIG.parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def device_launches(fn) -> int:
+    """The device's kernels, copies and memsets in one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)))
+
+
+def host_waits(fn, host_ms_of_call: float) -> dict:
+    """Whether ``fn`` waits for the device, two ways: ``sync_calls``, the
+    synchronizing calls PyTorch's sync debug mode reports in one call
+    (``waits_on_host`` if any); ``returned_during_sleep``, whether it
+    returns while a sleeping kernel queued ahead of it, four times as long
+    as the call takes on the host (at least 50 ms), still runs. A call of
+    more launches than the launch queue holds (about a thousand) blocks
+    on the full queue and reads False there without a sync."""
+    import warnings
+
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    syncs = sum("synchroniz" in str(w.message).lower() for w in caught)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(EIGH_SLEEP_CYCLES)
+    end.record()
+    end.synchronize()
+    base_ms = start.elapsed_time(end)
+    cycles = int(EIGH_SLEEP_CYCLES * max(1.0, 4.0 * host_ms_of_call / base_ms))
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    fn()
+    returned_during_sleep = not end.query()
+    torch.cuda.synchronize()
+    return {"waits_on_host": syncs > 0, "sync_calls": syncs,
+            "returned_during_sleep": returned_during_sleep, "sleep_ms": start.elapsed_time(end)}
+
+
+def ritz_pairs(alphas, betas, q, impl: str):
+    """``ritz_from_tridiag`` with the solver named."""
+    vals, u = eigh_dispatch(tridiag_matrix(alphas, betas), impl)
+    with f32_matmul():
+        return vals, q.transpose(1, 2) @ u
+
+
+def tanh_fn(vals, vecs):
+    with f32_matmul():
+        return vecs @ (torch.tanh(vals)[:, :, None] * vecs.transpose(1, 2))
+
+
+def served_with(pred: Predictor, chunk: list, impl: str) -> np.ndarray:
+    """The Predictor's model on a packed chunk, its Ritz pairs from B1
+    and the solver named."""
+    k = pred.num_eig_vec
+    with torch.inference_mode():
+        batch = pred.graph_batch(*pred._pack(chunk))
+        alphas, betas, q, *_ = lanczos_cuda.lanczos_tridiag_cuda_resid(
+            batch.ops[:, 0], batch.mask, k, EPS)
+        batch.ritz_val, batch.ritz_vec = ritz_pairs(alphas, betas[:, : k - 1], q, impl)
+        return pred.model(batch).cpu().numpy()[: len(chunk)]
+
+
+def phase_eigh(dev, smi: str) -> int:
+    """The Ritz eigensolver, Jacobi (``ops/jacobi.py``) against the
+    default (cuSOLVER), on the flagship's tridiagonals from B1 at B=64 and
+    B=256, K=20: the Ritz values and V tanh(D) Vᵀ within 1e-4, the
+    flagship's predictions with Jacobi's Ritz pairs within 1e-4 of the
+    default's; each solver's ms (CUDA events, host clock), its device
+    launches and whether it waits on the host. → B1's launches."""
+    k = FLAGSHIP_MODEL["num_eig_vec"]
+    lanczos_cuda.launches.reset()
+    cases = {}
+    for b in EIGH_BATCHES:
+        s, mask = qm8_operators(b, 1, dev)
+        alphas, betas, q, *_ = lanczos_cuda.lanczos_tridiag_cuda_resid(s, mask, k, EPS)
+        cases[b] = (alphas, betas[:, : k - 1], q)
+    cfg = {**FLAGSHIP_MODEL, "num_atom": NUM_ATOM, "num_task": NUM_TASK}
+    model = build_model(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    pred = Predictor(model, model.state_dict(), n_max=FLAGSHIP_DATASET["n_max"],
+                     batch_size=SERVE_BATCH, num_eig_vec=k,
+                     operator_kind=FLAGSHIP_DATASET["operator_kind"], num_task=NUM_TASK,
+                     device=dev)
+    chunk = synthetic_qm8_graphs(SERVE_BATCH, seed=2)
+    served = {impl: served_with(pred, chunk, impl) for impl in ("auto", "jacobi")}
+    launches = lanczos_cuda.launches.count
+
+    out, errs = {}, {}
+    for b, (alphas, betas, q) in cases.items():
+        t = tridiag_matrix(alphas, betas)
+        pairs = {impl: ritz_pairs(alphas, betas, q, impl) for impl in ("auto", "jacobi")}
+        val_err = float((pairs["jacobi"][0] - pairs["auto"][0]).abs().max())
+        fn_err = float((tanh_fn(*pairs["jacobi"]) - tanh_fn(*pairs["auto"])).abs().max())
+        finite = all(bool(torch.isfinite(x).all()) for pair in pairs.values() for x in pair)
+        solvers = {}
+        for impl, reps in (("auto", 20), ("jacobi", 5)):
+            call = lambda impl=impl: eigh_dispatch(t, impl)  # noqa: E731
+            wall = host_ms(call, reps, 1)
+            solvers[impl] = {"ms": cuda_ms(call, reps, 1), "host_ms": wall,
+                             **host_waits(call, wall)}
+            if b == SERVE_BATCH:  # the same at every B: the rounds do not grow with it
+                solvers[impl]["device_launches"] = device_launches(call)
+        out[b] = {"ritz_val_max_abs_err": val_err, "tanh_fn_max_abs_err": fn_err,
+                  "finite": finite, "solvers": solvers}
+        errs[b] = max(val_err, fn_err) if finite else float("inf")
+    pred_err = float(np.abs(served["jacobi"] - served["auto"]).max())
+    emit("eigh", k=k, sweeps=jacobi_sweeps(k), batches=out,
+         served_max_abs_err_jacobi_vs_auto=pred_err, tol=EIGH_TOL,
+         lanczos_tridiag_launches=launches, nvidia_smi=smi)
+    if max(errs.values()) > EIGH_TOL:
+        raise SmokeFailure(f"Jacobi's Ritz pairs differ from the default solver's: {errs}")
+    if not (np.isfinite(served["jacobi"]).all() and pred_err <= EIGH_TOL):
+        raise SmokeFailure(f"the flagship served with Jacobi's Ritz pairs differs by {pred_err}")
+    return launches
+
+
+def phase_profile_step(dev, smi: str, tmp: Path) -> int:
+    """``scripts/torch_profile_step.py`` at the bench's working point, cut
+    to 2 epochs: the table of self device time by op category sums to
+    the trace's busy time (1%), and holds B1 (the pack's). → B1's
+    launches."""
+    tps = script("torch_profile_step")
+    lanczos_cuda.launches.reset()
+    t0 = time.perf_counter()
+    report = tps.profile(dev, out=tmp, epochs=PROFILE_STEP_EPOCHS)
+    wall = time.perf_counter() - t0
+    launches = lanczos_cuda.launches.count
+    rows = {r["category"]: r for r in report["table"]}
+    busy_ms = None if report["device_busy_s"] is None else report["device_busy_s"] * 1e3
+    emit("profile_step", seconds=wall, lanczos_tridiag_launches=launches,
+         busy_ms=busy_ms, cut={"epochs": [tps.EPOCHS, PROFILE_STEP_EPOCHS]},
+         **{k: v for k, v in report.items() if k != "trace_file"}, nvidia_smi=smi)
+    if busy_ms is None or report["timeline"] != "device":
+        raise SmokeFailure("the profile_step trace holds no device time")
+    if abs(report["self_ms_total"] - busy_ms) > PROFILE_SUM_RTOL * busy_ms:
+        raise SmokeFailure(f"the table sums to {report['self_ms_total']} ms, the trace's busy "
+                           f"time is {busy_ms} ms")
+    if rows.get("B1 lanczos_tridiag", {}).get("ops", 0) < 1 or launches < 1:
+        raise SmokeFailure(f"the profile holds no B1 row: {sorted(rows)}; launches {launches}")
+    if not np.isfinite(report["loss"]):
+        raise SmokeFailure(f"the profiled training's loss is {report['loss']}")
+    return launches
+
+
+def phase_mem_probe(dev, smi: str, tmp: Path, graphs: dict, peaks: dict) -> None:
+    """``scripts/torch_mem_probe.py --stub-precompute`` on the 10M-node
+    LanczosNet, on the graph the sparse phase drew: the train step's peak
+    within 15% of the full run's peak in that phase."""
+    probe = script("torch_mem_probe")
+    cfg, _ = citation_config_cut(MEM_PROBE_CONFIG, SPARSE_CITATION_EPOCHS)
+    cfg["save_dir"] = str(tmp)
+    key = json.dumps(cfg["dataset"], sort_keys=True)
+    t0 = time.perf_counter()
+    rows = probe.probe(cfg, dev, stub_precompute=True, graph=graphs[key])
+    wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    train = next(r for r in rows if r["program"] == "train_step")
+    full_mb = peaks[MEM_PROBE_CONFIG]
+    ratio = train["peak_allocated_bytes"] / 2**20 / full_mb
+    emit("mem_probe", config=MEM_PROBE_CONFIG, seconds=wall, rows=rows,
+         full_run_peak_mb=full_mb, train_peak_over_full_run=ratio, rtol=MEM_PROBE_RTOL,
+         nvidia_smi=smi)
+    if abs(ratio - 1.0) > MEM_PROBE_RTOL:
+        raise SmokeFailure(f"the probe's train-step peak is {ratio:.3f} of the full run's "
+                           f"{full_mb} MB")
+    if not all(r["fits"] for r in rows):
+        raise SmokeFailure(f"the probe says {MEM_PROBE_CONFIG} does not fit: {rows}")
+
+
+def phase_poisoned_alloc(dev, smi: str) -> None:
+    """B1 and B2 over a caching allocator poisoned with NaN blocks of
+    every size the call allocates: all six outputs bit for bit a clean
+    call's (``lanczosnet_torch/utils/poison.py``)."""
+    t0 = time.perf_counter()
+    check = poisoned_lanczos_check(dev, np.random.default_rng(0))
+    emit("poisoned_alloc", seconds=time.perf_counter() - t0, cases=check, nvidia_smi=smi)
+    bad = [name for name, c in check.items() if not (c["bit_equal"] and c["finite"])]
+    if bad:
+        raise SmokeFailure(f"{bad} differ from a clean call over poisoned memory: {check}")
+
+
+def phase_run_all(smi: str, tmp: Path) -> None:
+    """``scripts/torch_run_all.py --only qm8_gcn --qm8-epochs 1`` into a
+    file of its own: exit 0, one row, the card named in the header."""
+    out = tmp / "RESULTS_TORCH.md"
+    tmp.mkdir(parents=True, exist_ok=True)
+    root = QM8_CONFIG.parents[1]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(root / "scripts" / "torch_run_all.py"), "--only",
+                           "qm8_gcn", "--qm8-epochs", "1", "--out", str(out)],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    text = out.read_text() if out.exists() else ""
+    rows = [line for line in text.splitlines() if line.startswith("| qm8_gcn |")]
+    emit("run_all", seconds=wall, rc=proc.returncode, rows=rows,
+         header=text.splitlines()[2] if text.count("\n") > 2 else None,
+         stderr_tail=proc.stderr[-2000:] if proc.returncode else "", nvidia_smi=smi)
+    if proc.returncode != 0 or len(rows) != 1 or smi not in text:
+        raise SmokeFailure(f"torch_run_all.py exited {proc.returncode}, rows {rows}, "
+                           f"the card named: {smi in text}")
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -3049,6 +3269,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as runs:
         runs = Path(runs)
         pack_launches, flagship_run, flagship_gps = phase_qm8_train(dev, smi, runs / "qm8_train")
+        eigh_launches = phase_eigh(dev, smi)
+        profile_launches = phase_profile_step(dev, smi, runs / "profile_step")
+        phase_poisoned_alloc(dev, smi)
         model_launches, model_runs = phase_qm8_models(dev, smi, runs / "qm8_models")
         bucket_launches = phase_qm8_buckets(dev, smi, runs / "qm8_buckets", flagship_gps)
         front_launches = phase_serve_fronts(dev, smi, flagship_run, model_runs[QM8_MODELS_CLI],
@@ -3061,14 +3284,18 @@ def main() -> None:
         dense_launches, dense_runs = phase_dense_citation(smi, Path(runs) / "dense")
         node_launches = phase_node_sharded_citation(dev, smi, Path(runs) / "node_sharded",
                                                     dense_runs)
-        graphs = phase_sparse_citation(dev, smi, Path(runs) / "sparse")
+        graphs, peaks = phase_sparse_citation(dev, smi, Path(runs) / "sparse")
+        phase_mem_probe(dev, smi, Path(runs) / "mem_probe", graphs, peaks)
         phase_sharded_citation(dev, smi, Path(runs) / "sharded", graphs)
         parallel_launches = phase_qm8_parallel(dev, smi, Path(runs) / "qm8_parallel")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_all_") as tmp:
+        phase_run_all(smi, Path(tmp))
     dryrun_launches = phase_dryrun(smi)
     t64, t256 = kern["timing"][SERVE_BATCH], kern["timing"][256]
     ts = stream["timing"]
     no_library = "none: no single PyTorch call computes K-step Lanczos"
     by_path = {"serve": serve_launches, "qm8_train_packs": pack_launches,
+               "eigh": eigh_launches, "profile_step": profile_launches,
                "qm8_models_bf16_run": model_launches[QM8_BF16],
                "qm8_models_ada_run": model_launches[QM8_ADA], "qm8_buckets": bucket_launches,
                **front_launches, "qm8_parallel": parallel_launches, "dryrun": dryrun_launches}

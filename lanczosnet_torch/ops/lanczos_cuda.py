@@ -40,7 +40,7 @@ from dataclasses import dataclass
 import torch
 
 from lanczosnet_torch.ops import _build
-from lanczosnet_torch.ops.eigh import eigh
+from lanczosnet_torch.ops.eigh import eigh_dispatch
 from lanczosnet_torch.ops.lanczos import (
     STREAM_CHUNK,
     lanczos_adjoint_bwd,
@@ -468,9 +468,10 @@ def ritz_from_tridiag(
     alphas: torch.Tensor, betas: torch.Tensor, q: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(alphas ``[B,k]``, betas ``[B,k-1]``, q ``[B,k,N]``) → Ritz pairs
-    (vals ``[B,k]``, vecs ``[B,N,k]``): eigh of T with its clamped
-    backward, then the rotation QᵀU in float32 under any TF32 flag."""
-    vals, u = eigh(tridiag_matrix(alphas, betas))
+    (vals ``[B,k]``, vecs ``[B,N,k]``): the eigensolve of T through
+    ``eigh_dispatch`` with its clamped backward, then the rotation QᵀU in
+    float32 under any TF32 flag."""
+    vals, u = eigh_dispatch(tridiag_matrix(alphas, betas))
     with f32_matmul():
         vecs = q.transpose(1, 2) @ u
     return vals, vecs

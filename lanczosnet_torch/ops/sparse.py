@@ -52,7 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lanczosnet_torch.ops.eigh import eigh
+from lanczosnet_torch.ops.eigh import eigh_dispatch
 from lanczosnet_torch.ops.lanczos import lanczos_tridiag_matvec, tridiag_matrix
 from lanczosnet_torch.ops.precision import f32_matmul
 from lanczosnet_torch.parallel.comm import Comm, all_gather_rows, pmax, psum, ring_hop
@@ -537,8 +537,8 @@ def sparse_lanczos_ritz(op: AnyOp, k: int, eps: float = 1e-6
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Ritz pairs ``(vals [k], vecs [N, k])`` of ``op``: the recursion on
     its product (rows at or past ``n_true`` get no start weight), the
-    eigh of the tridiagonal through the clamped backward of
-    ``ops/eigh.py``, the rotation in float32. Differentiable in
+    eigensolve of the tridiagonal through ``ops/eigh.py:eigh_dispatch``
+    and its clamped backward, the rotation in float32. Differentiable in
     ``op.val``.
 
     Node-sharded (either form) the recursion is the global one on this
@@ -553,7 +553,7 @@ def sparse_lanczos_ritz(op: AnyOp, k: int, eps: float = 1e-6
         mask[max(0, min(op.n, op.n_true - offset)):] = 0.0
     alphas, betas, q = lanczos_tridiag_matvec(lambda v: spmv(op, v), mask, k, eps,
                                               axis=axis, index_offset=offset)
-    vals, u = eigh(tridiag_matrix(alphas, betas))
+    vals, u = eigh_dispatch(tridiag_matrix(alphas, betas))
     with f32_matmul():
         return vals, q.T @ u
 

@@ -35,7 +35,11 @@ Two steps of the full-width flagship on four ranks of the card (dp=2 ×
 tp=2, gloo) give one device's losses and parameters, and each rank holds
 the rule's share of the parameters and Adam moments. Two steps of a
 node-sharded AdaLanczosNet on two ranks of the card (B2 in every rank's
-forward) give one device's logits, losses and gradients.
+forward) give one device's logits, losses and gradients. The Jacobi
+eigensolver gives cuSOLVER's Ritz values and V tanh(D) Vᵀ on the
+flagship's tridiagonals (1e-4), and both kernels over a caching
+allocator poisoned with NaN blocks give a clean call's outputs bit for
+bit.
 """
 
 import copy
@@ -61,7 +65,10 @@ from lanczosnet_torch.ops.lanczos_cuda import (
 from lanczosnet_torch.models import build_model
 from lanczosnet_torch.ops.precision import bf16_f32_accumulation
 from lanczosnet_torch.train.runner import QM8Runner
+from lanczosnet_torch.ops.eigh import eigh_dispatch
+from lanczosnet_torch.ops.lanczos import tridiag_matrix
 from lanczosnet_torch.utils.config import loads
+from lanczosnet_torch.utils.poison import poisoned_lanczos_check
 
 pytestmark = pytest.mark.cuda
 
@@ -746,3 +753,27 @@ def test_a_node_sharded_step_on_the_card_matches_one_device(card, tmp_path):
             np.testing.assert_allclose(workers.as_numpy(got["grads"][name]),
                                        workers.as_numpy(want), rtol=0, atol=1e-4 * scale,
                                        err_msg=name)
+
+
+def test_jacobi_on_the_card_matches_the_default_solver(card):
+    """The flagship's tridiagonals (64 QM8 graphs, N=32, K=20, from B1):
+    Jacobi's Ritz values and V tanh(D) Vᵀ within 1e-4 of cuSOLVER's."""
+    graphs = synthetic_qm8_graphs(64, seed=1)
+    ds = pack_dataset(graphs, n_max=32, device=card)
+    s = torch.from_numpy(ds.ops[:, 0]).to(card).contiguous()
+    mask = torch.from_numpy(ds.mask).to(card)
+    alphas, betas, q, *_ = lanczos_tridiag_cuda_resid(s, mask, 20)
+    t = tridiag_matrix(alphas, betas[:, :19])
+    pairs = {}
+    for impl in ("auto", "jacobi"):
+        vals, u = eigh_dispatch(t, impl)
+        vecs = q.transpose(1, 2).double() @ u.double()
+        pairs[impl] = (vals, vecs @ (torch.tanh(vals.double())[:, :, None] * vecs.transpose(1, 2)))
+    assert float((pairs["jacobi"][0] - pairs["auto"][0]).abs().max()) <= 1e-4
+    assert float((pairs["jacobi"][1] - pairs["auto"][1]).abs().max()) <= 1e-4
+
+
+def test_both_kernels_over_a_poisoned_allocator_equal_clean_calls(card):
+    check = poisoned_lanczos_check(card, np.random.default_rng(1))
+    assert {name: c["bit_equal"] and c["finite"] for name, c in check.items()} == {
+        "B1": True, "B2": True}, check

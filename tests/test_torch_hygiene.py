@@ -15,14 +15,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "lanczosnet_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "lanczosnet_tpu")
-# modules the walk must find: the serving fronts, export and the reader of
-# JAX checkpoints among them
+# modules the walk must find: the serving fronts, export, the reader of
+# JAX checkpoints and the Jacobi eigensolver among them
 EXPECTED = ("lanczosnet_torch.serve", "lanczosnet_torch.serve_http",
             "lanczosnet_torch.serve_native", "lanczosnet_torch.export",
             "lanczosnet_torch.train.flax_msgpack", "lanczosnet_torch.train.unported",
             "lanczosnet_torch.train.checkpoint", "lanczosnet_torch.ops.lanczos_cuda",
             "lanczosnet_torch.dryrun", "lanczosnet_torch.data.buckets",
-            "lanczosnet_torch.data.native", "lanczosnet_torch.utils.profiling")
+            "lanczosnet_torch.data.native", "lanczosnet_torch.utils.profiling",
+            "lanczosnet_torch.ops.jacobi", "lanczosnet_torch.utils.poison")
 
 
 def port_sources() -> list[Path]:
