@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing one JSON line or more, then its wall seconds on a
+line of its own (``{"phase": "<name>", "wall_s": s}``; the script's
+total last, as ``"total"``); any failure exits non-zero:
 
 1. device: a CUDA card must be visible; TF32 is switched off for
    matmuls and cuDNN, and the card's name and power limit are printed,
@@ -43,6 +45,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    one training step, a profile of a few steps and the host seconds of
    the splits' operators by the native packer and by the torch path are
    printed.
+5b. eigh, profile_step and bench: the Jacobi eigensolver against
+   cuSOLVER; ``scripts/torch_profile_step.py`` cut to 1 epoch; then the
+   three measuring tools: ``scripts/torch_bench.py`` in process at its
+   working point (21,760 graphs packed on the card by B1, one warm, one
+   timed and one traced epoch in place of groups of 10): the loss finite,
+   graphs/s above 0, the traced device share in (0, 1], B1 launched in
+   the pack; ``torch_bench_serve.py`` in a process of its own over HTTP
+   (1 and 16 clients, 2 s windows) and over the native front with the
+   binary wire (16 clients): no request fails, B1 launched;
+   ``torch_bench_sparse.py --feat 128 --steps 3`` (1M nodes, both dtypes):
+   a finite loss in each row. Then poisoned_alloc: B1 and B2 over
+   NaN-poisoned memory, bit for bit a clean call's.
 6. qm8_models: the nine other QM8 configs that train on one card
    (``configs/qm8_{gcn,graph_sage,dcnn,chebynet,gat,mpnn,gpnn}.yaml``,
    ``qm8_lanczos_net_bf16.yaml``, ``qm8_ada_lanczos_net.yaml``) at full
@@ -159,29 +173,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    accuracy and a profile of a few steps.
 12. sharded_citation: the four sharded sparse configs
    (``configs/million_sparse_gcn_{sharded,node_sharded,ring}.yaml``,
-   ``ten_million_sparse_lanczos_net_ring.yaml``) as written, 8 ranks
-   sharing the card over gloo, cut to 3 epochs (the 10M one to 2), each
+   ``ten_million_sparse_lanczos_net_ring.yaml``), 4 of their 8 ranks
+   sharing the card over gloo, cut to 3 epochs (the ring LanczosNet to 2
+   epochs and 2M of its 10M nodes), each
    trained through ``python -m lanczosnet_torch.cli`` (which starts the
    ranks), then ``-t`` on its best checkpoint in the ranks (and, for the
    ring, one more epoch resumed from the primary's snapshot): every
    rank on ``cuda`` (its ``setup`` event), the loss falls, ``-t`` repeats
    the test accuracy, the resumed run logs the next epoch, the sharded
-   eval logits within 1e-4 of one device's at the same weights (the 10M
-   bfloat16 run within 2% of the largest logit), and each rank's peak in
-   the ring below its peak node-sharded. Per config: step ms, per-rank
-   peak GB and host peak RSS, rank 0's set-up seconds, the backend and
-   the comm layer's staging and transport shares of a step.
+   eval logits within 1e-4 of one device's at the same weights (the ring
+   LanczosNet's bfloat16 logits within 2% of the largest), and each
+   rank's peak in the ring below its peak node-sharded. Per config: step
+   ms, per-rank peak GB and host peak RSS, rank 0's set-up seconds, the
+   backend and the comm layer's staging and transport shares of a step.
 13. qm8_parallel: ``QM8Runner``'s data and tensor parallelism through
    ``python -m lanczosnet_torch.cli``, the ranks sharing the card over
    gloo: ``configs/qm8_lanczos_net_tp4.yaml`` as written (4 ranks, dp=1 ×
-   tp=4, cut to 3 epochs), then ``-t`` and one resumed epoch in its
+   tp=4, cut to 2 epochs), then ``-t`` and one resumed epoch in its
    ranks; the same config with ``train.num_devices: 8`` (dp=2 × tp=4, 2
    epochs); ``configs/qm8_lanczos_net.yaml`` with ``train.num_devices: 4``
-   (dp=4, 2 epochs). The runs share a pack cache in a temporary
-   directory: the first run's rank 0 packs (B1 on the card), the others
-   read it. Gates: every rank on ``cuda``, the mesh the config asks for,
-   losses falling, each rank's parameter and Adam-moment bytes equal to
-   the rule's prediction (``parallel/tensor.py``), ``-t`` in the ranks,
+   (dp=4, 2 epochs), each cut to 1024/128/128 graphs. The runs share a
+   pack cache in a temporary directory: the first run's rank 0 packs (B1
+   on the card), the others read it. Gates: every rank on ``cuda``, the
+   mesh the config asks for, losses falling, each rank's parameter and
+   Adam-moment bytes equal to the rule's prediction
+   (``parallel/tensor.py``), ``-t`` in the ranks,
    the run's own test and ``-t`` on one device within 1e-6,
    ``Predictor.from_run_dir`` on one device within 1e-4 of the restored
    model; the flagship's first step at dp=2 × tp=4 within 1e-5 (relative)
@@ -196,9 +212,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
 15. kernels: one line per ported kernel, its error, its time, its bound,
    its latency floor and its launches, all of this run (the
    shared-memory kernel's launches by path: serving, the flagship's
-   packs, the bfloat16 flagship's run, QM8 AdaLanczosNet's run, the
-   bucketed flagship's packs, the HTTP front, the native front, the
-   served artifact, the QM8 mesh runs' packs and the dry run's ranks; it
+   packs, the eigensolver's and the profile's runs, the bench's pack and
+   the serving bench's request batches, the bfloat16 flagship's run, QM8
+   AdaLanczosNet's run, the bucketed flagship's packs, the HTTP front,
+   the native front, the served artifact, the QM8 mesh runs' packs and
+   the dry run's ranks; it
    runs behind the custom operator
    ``lanczosnet::lanczos_tridiag_resid``; the streamed kernel's by path:
    the Cora AdaLanczosNet run, the dense citation configs and the
@@ -257,6 +275,7 @@ from lanczosnet_torch.ops.normalize import build_operator_stack
 from lanczosnet_torch.ops.sparse import spmv
 from lanczosnet_torch.serve import MicroBatcher, Predictor
 from lanczosnet_torch.serve_http import ModelServer, make_http_server, serve_forever_in_thread
+from lanczosnet_torch.train import citation_runner as citation_runner_mod
 from lanczosnet_torch.train.citation_runner import CitationRunner
 from lanczosnet_torch.train.node_step import (
     make_node_eval_step,
@@ -267,6 +286,7 @@ from lanczosnet_torch.train.checkpoint import Checkpointer
 from lanczosnet_torch.train.optim import build_optimizer
 from lanczosnet_torch.train import runner as runner_mod
 from lanczosnet_torch.train.runner import build_runner
+from lanczosnet_torch.train import sparse_citation_runner as sparse_runner_mod
 from lanczosnet_torch.train.sparse_citation_runner import (
     SparseCitationRunner,
     sparse_citation_graph,
@@ -2029,15 +2049,40 @@ def dense_citation_run(name: str, tmp: Path) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def citation_graphs_drawn_once():
+    """Inside, ``CitationRunner`` draws each graph once and gets the same
+    arrays again for every later run of it (its pack copies them): the
+    dense phase's runs and their ``-t`` would draw Pubmed six times. One
+    graph is held at a time."""
+    draw, held = citation_runner_mod.citation_graph, {}
+
+    def once(dcfg):
+        key = json.dumps({k: dcfg.get(k) for k in ("source", "name", "seed", "scale", "data_dir")},
+                         sort_keys=True)
+        if key not in held:
+            held.clear()
+            held[key] = draw(dcfg)
+        return held[key]
+
+    citation_runner_mod.citation_graph = once
+    try:
+        yield
+    finally:
+        citation_runner_mod.citation_graph = draw
+
+
 def phase_dense_citation(smi: str, tmp: Path) -> tuple[int, dict]:
-    """The eight dense citation configs through the CLI. → (the streamed
-    kernel's launches in their runs, each run's JSON line's fields)."""
+    """The eight dense citation configs through the CLI, each graph drawn
+    once. → (the streamed kernel's launches in their runs, each run's
+    JSON line's fields)."""
     launches, runs = 0, {}
-    for name in DENSE_CITATION_CONFIGS:
-        out = dense_citation_run(name, tmp / name)
-        launches += out["stream_launches"]
-        runs[name] = out
-        emit("dense_citation", **out, nvidia_smi=smi)
+    with citation_graphs_drawn_once():
+        for name in DENSE_CITATION_CONFIGS:
+            out = dense_citation_run(name, tmp / name)
+            launches += out["stream_launches"]
+            runs[name] = out
+            emit("dense_citation", **out, nvidia_smi=smi)
     return launches, runs
 
 
@@ -2176,11 +2221,44 @@ def ten_million_checks(runner) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def coo_arrays_built_once():
+    """Inside, ``SparseCitationRunner`` sorts each COO operator of a graph
+    on the host once (12 s at 10M nodes, 2.5 s at Pubmed's) and gets the
+    same arrays again for every later config on that graph; each run
+    copies them to its device anew. Only the current graph's are held."""
+    build, held = sparse_runner_mod.coo_arrays, {}
+
+    def once(edges, n, kind, *args):
+        # a dense graph's edge list is made anew for each run: compare it
+        last = held.get("edges")
+        if last is not edges and not (last is not None and last.shape == edges.shape
+                                      and np.array_equal(last, edges)):
+            held.clear()
+            held["edges"] = edges
+        key = (n, kind, *args)
+        if key not in held:
+            held[key] = build(edges, n, kind, *args)
+        return held[key]
+
+    sparse_runner_mod.coo_arrays = once
+    try:
+        yield
+    finally:
+        sparse_runner_mod.coo_arrays = build
+
+
 def phase_sparse_citation(dev, smi: str, tmp: Path) -> tuple[dict, dict]:
     """The twelve single-device sparse configs through
     ``SparseCitationRunner``, each graph made once for the configs that
-    share its ``dataset`` section. → ({its dataset's key: the last
-    graph}, {config: the run's peak MB over set-up and training})."""
+    share its ``dataset`` section, and its operators sorted once. →
+    ({its dataset's key: the last graph}, {config: the run's peak MB over
+    set-up and training})."""
+    with coo_arrays_built_once():
+        return sparse_citation_configs(dev, smi, tmp)
+
+
+def sparse_citation_configs(dev, smi: str, tmp: Path) -> tuple[dict, dict]:
     graphs, peaks = {}, {}
     for name in SPARSE_CITATION_CONFIGS:
         dcfg = config_io.loads((QM8_CONFIG.parent / f"{name}.yaml").read_text())["dataset"]
@@ -2207,19 +2285,26 @@ def phase_sparse_citation(dev, smi: str, tmp: Path) -> tuple[dict, dict]:
     return {k: g for k, (g, _) in graphs.items()}, peaks
 
 
-# the 10M config first: it reuses the graph the single-device phase drew
 SHARDED_CITATION_CONFIGS = ("ten_million_sparse_lanczos_net_ring", "million_sparse_gcn_sharded",
                             "million_sparse_gcn_node_sharded", "million_sparse_gcn_ring")
-# the depth cuts: 3 of max_epoch 60 (1M), 2 of 20 (10M: about 7 s a step
-# and a minute of set-up on rank 0 with 8 ranks on one H100)
+# the depth cuts: 3 of max_epoch 60 (1M), 2 of 20 (the ring LanczosNet)
 SHARDED_CITATION_EPOCHS = {"ten_million_sparse_lanczos_net_ring": 2}
 SHARDED_DEFAULT_EPOCHS = 3
 # resumed for one more epoch from the primary's snapshot: the ring (the
 # resume is the same code in every form; each costs a set-up)
 SHARDED_RESUMED = ("million_sparse_gcn_ring",)
 SHARDED_F32_TOL = 1e-4  # sharded float32 logits against one device's, same weights
-# the configs' own rank count (8) and graph size; a CPU rehearsal sets them
-SHARDED_RANKS = None
+# the process cut: 4 ranks of the configs' 8 (six launches of ranks that
+# share the card, each rank's start-up paid in each); a CPU rehearsal sets 2
+SHARDED_RANKS = 4
+# the graph cuts: the ring LanczosNet to 2M of its 10M nodes (rank 0 drew
+# 10M in 29 s and built its operator in 10 s, in the training launch, the
+# follow-ups and the one-device check; the sparse phase trains the 10M
+# configs on one device), the 1M configs to 500k; a CPU rehearsal cuts
+# every graph
+SHARDED_NODE_CUTS = {"ten_million_sparse_lanczos_net_ring": 2_000_000,
+                     **{f"million_sparse_gcn_{s}": 500_000
+                        for s in ("sharded", "node_sharded", "ring")}}
 SHARDED_NODES = None
 
 
@@ -2234,9 +2319,10 @@ def sharded_config_cut(name: str, tmp: Path) -> tuple[dict, dict]:
     if SHARDED_RANKS is not None:
         cut["train.num_devices"] = [cfg["train"]["num_devices"], SHARDED_RANKS]
         cfg["train"]["num_devices"] = SHARDED_RANKS
-    if SHARDED_NODES is not None:
-        cut["dataset.num_nodes"] = [cfg["dataset"]["num_nodes"], SHARDED_NODES]
-        cfg["dataset"]["num_nodes"] = SHARDED_NODES
+    nodes = SHARDED_NODES or SHARDED_NODE_CUTS.get(name)
+    if nodes is not None:
+        cut["dataset.num_nodes"] = [cfg["dataset"]["num_nodes"], nodes]
+        cfg["dataset"]["num_nodes"] = nodes
     return cfg, cut
 
 
@@ -2458,10 +2544,12 @@ def phase_sharded_citation(dev, smi: str, tmp: Path, graphs: dict | None = None,
 # ranks sharing the card over gloo; the depth cuts, of max_epoch 30
 QM8_TP4_CONFIG = QM8_CONFIG.parent / "qm8_lanczos_net_tp4.yaml"
 QM8_PARALLEL_RUNS = {  # name: (config, train.num_devices, epochs, (dp, tp))
-    "tp4": (QM8_TP4_CONFIG, None, 3, (1, 4)),
+    "tp4": (QM8_TP4_CONFIG, None, 2, (1, 4)),
     "dp2_tp4": (QM8_TP4_CONFIG, 8, 2, (2, 4)),
     "dp4": (QM8_CONFIG, 4, 2, (4, 1)),
 }
+# the size cut of the three runs' splits, of 2048/256/256 (qm8_models' cut)
+QM8_PARALLEL_SPLITS = {"num_train": 1024, "num_val": 128, "num_test": 128}
 QM8_PARALLEL_FOLLOWED = "tp4"  # tested in its ranks and on one device, resumed one epoch
 QM8_FIRST_STEP_MESH = (2, 4)
 QM8_FIRST_STEP_RTOL = 1e-5  # the first step's loss against one device's
@@ -2477,6 +2565,9 @@ def qm8_parallel_config(name: str, tmp: Path) -> tuple[Path, dict, dict]:
     cut = {"train.max_epoch": [tcfg["max_epoch"], epochs],
            "exp_dir": [cfg.get("exp_dir"), str(tmp / "exp")]}
     tcfg["max_epoch"], cfg["exp_dir"] = epochs, str(tmp / "exp")
+    for key, n in QM8_PARALLEL_SPLITS.items():
+        cut[f"dataset.{key}"] = [cfg["dataset"][key], n]
+        cfg["dataset"][key] = n
     if ndev is not None:
         cut["train.num_devices"] = [tcfg.get("num_devices"), ndev]
         tcfg["num_devices"] = ndev
@@ -3026,7 +3117,7 @@ def phase_node_sharded_citation(dev, smi: str, tmp: Path, one_device: dict,
 EIGH_BATCHES = (SERVE_BATCH, 256)
 EIGH_TOL = 1e-4  # Jacobi against cuSOLVER: Ritz values, V tanh(D) Vᵀ, predictions
 EIGH_SLEEP_CYCLES = 100_000_000  # a sleeping kernel queued ahead of a call: about 50 ms
-PROFILE_STEP_EPOCHS = 2  # the depth cut: of torch_profile_step.py's 10
+PROFILE_STEP_EPOCHS = 1  # the depth cut: of torch_profile_step.py's 10
 PROFILE_SUM_RTOL = 0.01  # the table's self times against the trace's busy time
 MEM_PROBE_CONFIG = "ten_million_sparse_lanczos_net"
 MEM_PROBE_RTOL = 0.15  # the probe's train-step peak against the full run's
@@ -3201,6 +3292,70 @@ def phase_profile_step(dev, smi: str, tmp: Path) -> int:
     return launches
 
 
+BENCH_CUT = {"group": 1, "rounds": 1}  # the depth cut: of torch_bench.py's 10 epochs and 2 groups
+BENCH_SERVE_RUNS = (("--window", "2", "--concurrency", "1,16"),
+                    ("--window", "2", "--native", "--binary", "--concurrency", "16"))
+BENCH_SPARSE_ARGS = ("--feat", "128", "--steps", "3")  # both dtypes, 1M nodes
+
+
+def tool_run(name: str, args, timeout: float = 300) -> tuple[list[dict], str, float]:
+    """``scripts/<name>.py args`` in a process of its own → (its JSON rows,
+    its stderr, seconds); raises unless it exits 0 in time."""
+    root = QM8_CONFIG.parents[1]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(root / "scripts" / f"{name}.py"), *args],
+                          cwd=root, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeFailure(f"{name}.py {' '.join(args)} exited {proc.returncode}: "
+                           f"{(proc.stdout + proc.stderr)[-3000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    return rows, proc.stderr, wall
+
+
+def phase_bench(dev, smi: str) -> dict[str, int]:
+    """The three measuring tools. ``scripts/torch_bench.py`` in process at
+    its working point, cut to one warm, one timed and one traced epoch:
+    the loss finite, graphs/s above 0, the traced share of device time
+    in (0, 1], B1 launched by the pack. ``torch_bench_serve.py`` over
+    HTTP (1 and 16 clients) and over the native front with the binary
+    wire (16): no request fails, B1 launched. ``torch_bench_sparse.py`` at
+    F=128, 3 steps, 1M nodes: a row with a finite loss for each dtype.
+    → B1's launches by path."""
+    tb = script("torch_bench")
+    lanczos_cuda.launches.reset()
+    t0 = time.perf_counter()
+    line, r = tb.run(device=dev, **BENCH_CUT)
+    wall = time.perf_counter() - t0
+    launches = {"bench": lanczos_cuda.launches.count}
+    emit("bench", seconds=wall, line=line, loss=r["loss"], pack_s=r["pack_s"],
+         device_busy_s=r["device_busy_s"], lanczos_tridiag_launches=launches["bench"],
+         cut={k: [getattr(tb, k.upper()), v] for k, v in BENCH_CUT.items()}, nvidia_smi=smi)
+    frac = line["device_time_frac"]
+    if not (np.isfinite(r["loss"]) and line["value"] > 0 and frac is not None and 0 < frac <= 1
+            and launches["bench"] >= 1):
+        raise SmokeFailure(f"torch_bench: loss {r['loss']}, {line['value']} graphs/s, device "
+                           f"time share {frac}, B1 launches {launches['bench']}")
+    serve_launches = 0
+    for args in BENCH_SERVE_RUNS:
+        rows, err, wall = tool_run("torch_bench_serve", args)
+        counts = [int(ln.rsplit(":", 1)[1]) for ln in err.splitlines()
+                  if ln.startswith("lanczos_tridiag launches:")]
+        serve_launches += sum(counts)
+        emit("bench_serve", seconds=wall, args=list(args), rows=rows,
+             lanczos_tridiag_launches=counts, nvidia_smi=smi)
+        if not rows or any(row["errors"] != 0 for row in rows) or len(counts) != 1 \
+                or counts[0] < 1:
+            raise SmokeFailure(f"torch_bench_serve.py {' '.join(args)}: rows {rows}, "
+                               f"B1 launches {counts}")
+    launches["bench_serve"] = serve_launches
+    rows, _, wall = tool_run("torch_bench_sparse", BENCH_SPARSE_ARGS)
+    emit("bench_sparse", seconds=wall, args=list(BENCH_SPARSE_ARGS), rows=rows, nvidia_smi=smi)
+    if len(rows) != 2 or not all(np.isfinite(row.get("loss", np.nan)) for row in rows):
+        raise SmokeFailure(f"torch_bench_sparse.py: rows {rows}")
+    return launches
+
+
 def phase_mem_probe(dev, smi: str, tmp: Path, graphs: dict, peaks: dict) -> None:
     """``scripts/torch_mem_probe.py --stub-precompute`` on the 10M-node
     LanczosNet, on the graph the sparse phase drew: the train step's peak
@@ -3259,43 +3414,63 @@ def phase_run_all(smi: str, tmp: Path) -> None:
                            f"the card named: {smi in text}")
 
 
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then the phase's wall seconds on a line of
+    their own: ``{"phase": name, "wall_s": s}``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(json.dumps({"phase": name, "wall_s": time.perf_counter() - t0}), flush=True)
+    return out
+
+
 def main() -> None:
-    smi = phase_device()
+    t_start = time.perf_counter()
+    smi = timed("device", phase_device)
     dev = torch.device("cuda", 0)
-    phase_build()
-    barrier = phase_barrier(dev)
-    kern = phase_kernel(dev, barrier["small_launch_ms"])
-    serve_launches = phase_serve(dev, smi)
+    timed("build", phase_build)
+    barrier = timed("barrier", phase_barrier, dev)
+    kern = timed("kernel", phase_kernel, dev, barrier["small_launch_ms"])
+    serve_launches = timed("serve", phase_serve, dev, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as runs:
         runs = Path(runs)
-        pack_launches, flagship_run, flagship_gps = phase_qm8_train(dev, smi, runs / "qm8_train")
-        eigh_launches = phase_eigh(dev, smi)
-        profile_launches = phase_profile_step(dev, smi, runs / "profile_step")
-        phase_poisoned_alloc(dev, smi)
-        model_launches, model_runs = phase_qm8_models(dev, smi, runs / "qm8_models")
-        bucket_launches = phase_qm8_buckets(dev, smi, runs / "qm8_buckets", flagship_gps)
-        front_launches = phase_serve_fronts(dev, smi, flagship_run, model_runs[QM8_MODELS_CLI],
-                                            runs / "serve_fronts")
+        pack_launches, flagship_run, flagship_gps = timed(
+            "qm8_train", phase_qm8_train, dev, smi, runs / "qm8_train")
+        eigh_launches = timed("eigh", phase_eigh, dev, smi)
+        profile_launches = timed("profile_step", phase_profile_step, dev, smi,
+                                 runs / "profile_step")
+        bench_launches = timed("bench", phase_bench, dev, smi)
+        timed("poisoned_alloc", phase_poisoned_alloc, dev, smi)
+        model_launches, model_runs = timed("qm8_models", phase_qm8_models, dev, smi,
+                                           runs / "qm8_models")
+        bucket_launches = timed("qm8_buckets", phase_qm8_buckets, dev, smi,
+                                runs / "qm8_buckets", flagship_gps)
+        front_launches = timed("serve_fronts", phase_serve_fronts, dev, smi, flagship_run,
+                               model_runs[QM8_MODELS_CLI], runs / "serve_fronts")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cora_") as run_dir:
-        runner = CitationRunner(citation_config(run_dir), device=dev)
-        stream = phase_stream_kernel(dev, runner, barrier)
-        stream_launches = phase_citation_train(runner, smi)
+        runner = timed("citation_setup", CitationRunner, citation_config(run_dir), device=dev)
+        stream = timed("stream_kernel", phase_stream_kernel, dev, runner, barrier)
+        stream_launches = timed("citation_train", phase_citation_train, runner, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_citation_") as runs:
-        dense_launches, dense_runs = phase_dense_citation(smi, Path(runs) / "dense")
-        node_launches = phase_node_sharded_citation(dev, smi, Path(runs) / "node_sharded",
-                                                    dense_runs)
-        graphs, peaks = phase_sparse_citation(dev, smi, Path(runs) / "sparse")
-        phase_mem_probe(dev, smi, Path(runs) / "mem_probe", graphs, peaks)
-        phase_sharded_citation(dev, smi, Path(runs) / "sharded", graphs)
-        parallel_launches = phase_qm8_parallel(dev, smi, Path(runs) / "qm8_parallel")
+        dense_launches, dense_runs = timed("dense_citation", phase_dense_citation, smi,
+                                           Path(runs) / "dense")
+        node_launches = timed("node_sharded_citation", phase_node_sharded_citation, dev, smi,
+                              Path(runs) / "node_sharded", dense_runs)
+        graphs, peaks = timed("sparse_citation", phase_sparse_citation, dev, smi,
+                              Path(runs) / "sparse")
+        timed("mem_probe", phase_mem_probe, dev, smi, Path(runs) / "mem_probe", graphs, peaks)
+        timed("sharded_citation", phase_sharded_citation, dev, smi, Path(runs) / "sharded",
+              graphs)
+        parallel_launches = timed("qm8_parallel", phase_qm8_parallel, dev, smi,
+                                  Path(runs) / "qm8_parallel")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_all_") as tmp:
-        phase_run_all(smi, Path(tmp))
-    dryrun_launches = phase_dryrun(smi)
+        timed("run_all", phase_run_all, smi, Path(tmp))
+    dryrun_launches = timed("dryrun", phase_dryrun, smi)
+    print(json.dumps({"phase": "total", "wall_s": time.perf_counter() - t_start}), flush=True)
     t64, t256 = kern["timing"][SERVE_BATCH], kern["timing"][256]
     ts = stream["timing"]
     no_library = "none: no single PyTorch call computes K-step Lanczos"
     by_path = {"serve": serve_launches, "qm8_train_packs": pack_launches,
-               "eigh": eigh_launches, "profile_step": profile_launches,
+               "eigh": eigh_launches, "profile_step": profile_launches, **bench_launches,
                "qm8_models_bf16_run": model_launches[QM8_BF16],
                "qm8_models_ada_run": model_launches[QM8_ADA], "qm8_buckets": bucket_launches,
                **front_launches, "qm8_parallel": parallel_launches, "dryrun": dryrun_launches}

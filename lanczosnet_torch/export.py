@@ -12,8 +12,9 @@ directory that serves without the model code or its config:
                                 custom operator lanczosnet::
                                 lanczos_tridiag_resid, the eigh, the
                                 rotation) and the model, with its
-                                parameters (not written for GPNN, whose
-                                partition the compact wire cannot carry)
+                                parameters (written only when the
+                                predictor has the compact wire on: never
+                                for GPNN, whose partition it cannot carry)
       request_program_f32.pt2   the same on the float32 wire: (adj float32,
                                 atom, node_feat, mask [B,N]), and for GPNN
                                 cluster [B,N], the partition the host
@@ -78,7 +79,7 @@ def export_predictor(predictor: Predictor, out_dir: str | Path) -> Path:
     # request is
     probe = synthetic_qm8_graphs(1, seed=0, n_lo=4, n_hi=min(8, predictor.n_max))
     wires = [(PROGRAM_F32, False)]
-    if not predictor.num_cluster:
+    if predictor.compact_wire:
         wires.append((PROGRAM_COMPACT, True))
     program = predictor.program.eval()
     with torch.no_grad(), f32_matmul(), bf16_f32_accumulation():
@@ -126,6 +127,8 @@ class ArtifactPredictor(Predictor):
         self.num_cluster = int(meta["num_cluster"])
         self.operator_kind = str(meta["operator_kind"])
         self.num_task = int(meta["num_task"])
+        # the compact wire is what the artifact ships
+        self.compact_wire = PROGRAM_COMPACT in programs
         self.stats = None
         if meta.get("label_mean") is not None:
             dtype = np.dtype(meta.get("label_dtype") or "float32")

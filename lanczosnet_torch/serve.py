@@ -106,6 +106,7 @@ class Predictor:
         stats: Optional[LabelStats] = None,
         num_task: int = 16,
         device: str | torch.device | None = None,
+        compact_wire: bool = True,
     ):
         self.device = resolve_device(device)
         model.load_state_dict(state_dict, strict=True)
@@ -118,6 +119,8 @@ class Predictor:
         self.operator_kind = operator_kind
         self.stats = stats
         self.num_task = num_task
+        # the compact wire carries no partition, so GPNN never takes it
+        self.compact_wire = compact_wire and num_cluster == 0
 
     @classmethod
     def from_run_dir(
@@ -126,6 +129,7 @@ class Predictor:
         tag: str = "best",
         batch_size: int = 64,
         device: str | torch.device | None = None,
+        compact_wire: bool = True,
     ) -> "Predictor":
         """Serve a training run: its ``config.yaml`` and the snapshot
         ``tag`` of its checkpoints, with the label width and the training
@@ -156,21 +160,24 @@ class Predictor:
             stats=stats,
             num_task=num_task,
             device=device,
+            compact_wire=compact_wire,
         )
 
     def warmup(self) -> None:
-        """Run one dummy request through each wire, so the first real
-        request pays no kernel build or first-launch cost."""
+        """Run one dummy request through each wire the predictor takes
+        (the float32 one alone with the compact wire off), so the first
+        real request pays no kernel build or first-launch cost."""
         probe = synthetic_qm8_graphs(1, seed=0, n_lo=4, n_hi=min(8, self.n_max))
         self.predict(probe)
-        self._finish(*self._dispatch(probe, compact=False))
+        if self.compact_wire:
+            self._finish(*self._dispatch(probe, compact=False))
 
     def _compact_ok(self, chunk: Sequence[dict]) -> bool:
-        """Lossless-uint8 eligibility: not GPNN (the compact wire has no
-        partition), every adjacency entry an integer in [0, 255] and
-        every real atom type positive (the device program rebuilds the
-        padding mask as atom_type > 0)."""
-        if self.num_cluster:
+        """Lossless-uint8 eligibility: the compact wire on (never for
+        GPNN: it has no partition), every adjacency entry an integer in
+        [0, 255] and every real atom type positive (the device program
+        rebuilds the padding mask as atom_type > 0)."""
+        if not self.compact_wire:
             return False
         for g in chunk:
             adj = np.asarray(g["adj"])
@@ -192,8 +199,9 @@ class Predictor:
             raise ValueError(f"chunk {real} > batch_size={self.batch_size}")
         if compact is None:
             compact = self._compact_ok(chunk)
-        if compact and self.num_cluster:
-            raise ValueError("GPNN requests take the float32 wire: the compact wire has no partition")
+        if compact and not self.compact_wire:
+            raise ValueError("this predictor takes the float32 wire alone: the compact wire is off "
+                             "(always for GPNN, whose partition it cannot carry)")
         bs, n = self.batch_size, self.n_max
         e = int(np.asarray(chunk[0]["adj"]).shape[0])
         feat0 = chunk[0].get("node_feat")

@@ -134,7 +134,9 @@ def dropout_seed(seed: int, mode: str | None, rank: int) -> int:
     return seed
 
 
-def _save_products(ctx, op, *args, **kwargs):
+def save_products(ctx, op, *args, **kwargs):
+    """The selective checkpoint policy of ``remat: dots``: keep the matrix
+    products' outputs, recompute the rest in the backward."""
     return CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
@@ -377,7 +379,7 @@ class SparseCitationRunner:
             if self.remat == "full":
                 return checkpoint(fwd, use_reentrant=False)
             return checkpoint(fwd, use_reentrant=False, context_fn=lambda: (
-                create_selective_checkpoint_contexts(_save_products)))
+                create_selective_checkpoint_contexts(save_products)))
 
         def train_step() -> torch.Tensor:
             self.model.train()

@@ -38,6 +38,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "scripts"))
 
 from lanczosnet_torch.data.dataset import pack_dataset  # noqa: E402
 from lanczosnet_torch.data.qm8 import synthetic_qm8_graphs  # noqa: E402
@@ -59,29 +60,24 @@ from lanczosnet_torch.utils.profiling import (  # noqa: E402
     self_time_table,
     trace,
 )
+# the working point, defined once for the port's tools
+from torch_bench import (  # noqa: E402
+    BATCH,
+    EDGE_TYPES,
+    FILTER_HIDDEN,
+    HID,
+    K,
+    LONG,
+    N,
+    NUM_GRAPHS,
+    SHORT,
+    TASKS,
+    model_config,
+)
 
-# bench.py's working point, kept here: the port imports nothing of bench.py
-BATCH = 64
-N = 32
-K = 20
-HID = [128, 128, 128]
-TASKS = 16
-SHORT = [1, 2, 3]
-LONG = [5, 7, 10, 20, 30]
-FILTER_HIDDEN = 16
-NUM_ATOM = 8
-EDGE_TYPES = 4
-NUM_GRAPHS = 21760  # bench.py's real-QM8 scale
 EPOCHS = 10  # profile_step.py's group of epochs
 OUT = REPO / "exp" / "torch_profile_step"
 HOST_CATEGORIES = ("cpu_op",)
-
-
-def model_config(hidden) -> dict:
-    return {"name": "LanczosNet", "num_atom": NUM_ATOM, "num_task": TASKS,
-            "hidden_dim": list(hidden), "embed_dim": hidden[0],
-            "short_diffusion_dist": SHORT, "long_diffusion_dist": LONG, "num_eig_vec": K,
-            "spectral_filter_kind": "MLP", "filter_hidden_dim": FILTER_HIDDEN, "dropout": 0.1}
 
 
 def _sync(dev: torch.device) -> None:

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX, flax, YAML or msgpack, and nothing of
-the JAX package, in ``lanczosnet_torch`` or ``chip_smoke.py``.
+the JAX package, in ``lanczosnet_torch``, ``chip_smoke.py`` or the
+port's tools (``scripts/torch_*.py``, which import no JAX tool either).
 
 The import check runs in a fresh interpreter: this test process has
 imported JAX already (tests/conftest.py).
@@ -26,8 +27,14 @@ EXPECTED = ("lanczosnet_torch.serve", "lanczosnet_torch.serve_http",
             "lanczosnet_torch.ops.jacobi", "lanczosnet_torch.utils.poison")
 
 
+# the port's tools may not import the JAX side's measuring tools either
+SCRIPT_FORBIDDEN = FORBIDDEN + ("bench", *sorted(
+    p.stem for p in (REPO / "scripts").glob("*.py") if not p.stem.startswith("torch_")))
+
+
 def port_sources() -> list[Path]:
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "scripts").glob("torch_*.py")))
 
 
 def test_importing_every_port_module_pulls_in_no_jax():
@@ -52,6 +59,7 @@ def test_importing_every_port_module_pulls_in_no_jax():
 def test_port_sources_import_nothing_forbidden():
     offenders = []
     for path in port_sources():
+        forbidden = SCRIPT_FORBIDDEN if path.parent.name == "scripts" else FORBIDDEN
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -61,7 +69,7 @@ def test_port_sources_import_nothing_forbidden():
                 continue
             offenders += [
                 f"{path.relative_to(REPO)}:{node.lineno} {n}"
-                for n in names if n.split(".")[0] in FORBIDDEN
+                for n in names if n.split(".")[0] in forbidden
             ]
     assert not offenders
 
