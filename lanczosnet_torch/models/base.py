@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lanczosnet_torch.utils.profiling import span
+
 
 def mae_loss(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """Mean absolute error over batch and tasks."""
@@ -219,23 +221,24 @@ class SumDense(Dense):
     bfloat16 first, as flax's ``promote_dtype`` does) are upcast, so
     every product is exact and only the sum rounds. The parameters are
     those of the ``Dense`` on the concat; on a single tensor it is that
-    ``Dense``."""
+    ``Dense``. The list path is traced as the span ``model.dense``."""
 
     def forward(self, parts) -> torch.Tensor:
         if isinstance(parts, torch.Tensor):
             return super().forward(parts)
-        w = self.weight.to(self.act_dtype).float()
-        acc, off = None, 0
-        for p in parts:
-            f = p.shape[-1]
-            partial = F.linear(p.float(), w[:, off: off + f])
-            acc = partial if acc is None else acc + partial
-            off += f
-        if off != self.in_features:
-            raise ValueError(f"parts have {off} features in all, the weight {self.in_features}")
-        if self.bias is not None:
-            acc = acc + self.bias.to(self.act_dtype).float()
-        return acc.to(self.act_dtype)
+        with span("model.dense"):
+            w = self.weight.to(self.act_dtype).float()
+            acc, off = None, 0
+            for p in parts:
+                f = p.shape[-1]
+                partial = F.linear(p.float(), w[:, off: off + f])
+                acc = partial if acc is None else acc + partial
+                off += f
+            if off != self.in_features:
+                raise ValueError(f"parts have {off} features in all, the weight {self.in_features}")
+            if self.bias is not None:
+                acc = acc + self.bias.to(self.act_dtype).float()
+            return acc.to(self.act_dtype)
 
 
 def lecun_normal_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

@@ -68,6 +68,7 @@ from lanczosnet_torch.ops.sparse import (
     spectral_project,
     spmv,
 )
+from lanczosnet_torch.utils.profiling import span
 
 
 def replaying(fn, generator: Optional[torch.Generator]):
@@ -332,7 +333,8 @@ class SparseGPNN(SparseNodeModel):
 class _SpectralLayers(SparseNodeModel):
     """The layer of both LanczosNets: ``[h, S^t h for t in short,
     V f_t(D) Vᵀ h for t in long]`` through ``layer_<i>``, where ``f_t`` is
-    the MLP ``filter_<i>_t<t>`` of ``[D, D^t]``."""
+    the MLP ``filter_<i>_t<t>`` of ``[D, D^t]``; the long scales are
+    traced as the span ``model.spectral``."""
 
     def __init__(self, in_dim: int, hidden_dim: Sequence[int], num_class: int,
                  short_diffusion_dist: Sequence[int], long_diffusion_dist: Sequence[int],
@@ -351,13 +353,14 @@ class _SpectralLayers(SparseNodeModel):
         parts = [h]
         if self.short:
             parts.extend(sparse_diffusion_features(op, h, self.short))
-        for t in self.long:
-            feat = torch.stack([ritz_val, ritz_val ** t], dim=-1)  # [K, 2]
-            f = self.filters[f"filter_{li}_t{t}"](feat)[..., 0]  # [K]
-            vtx = spectral_project(ritz_vec, h, op)  # [K, F] float32
-            with f32_matmul():
-                recon = ritz_vec @ (f[:, None] * vtx)
-            parts.append(recon.to(h.dtype))
+        with span("model.spectral"):
+            for t in self.long:
+                feat = torch.stack([ritz_val, ritz_val ** t], dim=-1)  # [K, 2]
+                f = self.filters[f"filter_{li}_t{t}"](feat)[..., 0]  # [K]
+                vtx = spectral_project(ritz_vec, h, op)  # [K, F] float32
+                with f32_matmul():
+                    recon = ritz_vec @ (f[:, None] * vtx)
+                parts.append(recon.to(h.dtype))
         return self.drop(torch.relu(self.layers[li](parts)))
 
     def propagate(self, x, op, ritz_val, ritz_vec) -> torch.Tensor:

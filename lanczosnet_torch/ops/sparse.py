@@ -56,6 +56,7 @@ from lanczosnet_torch.ops.eigh import eigh_dispatch
 from lanczosnet_torch.ops.lanczos import lanczos_tridiag_matvec, tridiag_matrix
 from lanczosnet_torch.ops.precision import f32_matmul
 from lanczosnet_torch.parallel.comm import Comm, all_gather_rows, pmax, psum, ring_hop
+from lanczosnet_torch.utils.profiling import span
 
 _NARROW = (torch.bfloat16, torch.float16)
 
@@ -332,11 +333,13 @@ def ring_mean_spmv(rop: RingOp, x: torch.Tensor) -> torch.Tensor:
 
 def spmv(op: AnyOp, x: torch.Tensor) -> torch.Tensor:
     """``S @ x`` for ``x [N]`` or ``[N, F]`` (this rank's block when node-
-    sharded), in x's dtype (the weights are cast to it)."""
-    if isinstance(op, RingOp):
-        return ring_spmv(op, x)
-    xg = edge_gather(op, x)
-    return _edge_sum(op, _segsum(_edge_scale(op.val.to(x.dtype), xg), op.row, op.n))
+    sharded), in x's dtype (the weights are cast to it); traced as the
+    span ``sparse.spmv``."""
+    with span("sparse.spmv"):
+        if isinstance(op, RingOp):
+            return ring_spmv(op, x)
+        xg = edge_gather(op, x)
+        return _edge_sum(op, _segsum(_edge_scale(op.val.to(x.dtype), xg), op.row, op.n))
 
 
 def live_degree(op: AnyOp) -> torch.Tensor:

@@ -221,7 +221,8 @@ class SparseCitationRunner:
                          num_edges=graph["num_edges"], comm=self.comm.stats.as_dict())
         else:
             setup.update(device=str(self.device))
-        self.metrics.log("setup", **setup, host_peak_rss_mb=host_peak_rss_mb())
+        self.metrics.log("setup", **setup, host_peak_rss_mb=host_peak_rss_mb(),
+                         **self._peak_memory())
         self.log.info(
             "sparse citation runner: model=%s dataset=%s nodes=%d edges=%d classes=%d "
             "dtype=%s remat=%s device=%s | %s", mcfg["name"],

@@ -18,8 +18,8 @@ Counterpart of ``lanczosnet_tpu/utils/profiling.py``, in PyTorch's idiom:
   (GEMM, the two Lanczos kernels, eigh, elementwise, reductions,
   copies, ...), the counterpart of ``load_xspace`` and
   ``scripts/profile_step.py:analyze``;
-- ``StepTimer``: wall time over device work, the device synchronized
-  before the clock is read;
+- ``span``: a named span of the program's own (a ``record_function``)
+  while a profiler records, and nothing otherwise;
 - ``qm8_train_flops_per_graph``: the analytic FLOPs of a LanczosNet
   training step a graph, the numerator of the flagship's MFU against
   ``FP32_FLOPS_PER_S``.
@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import time
 from pathlib import Path
 from typing import Any, Iterator, Optional
 
@@ -43,6 +42,7 @@ FP32_FLOPS_PER_S = 67e12
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 _active: list[Path] = []
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -86,6 +86,18 @@ def debug_nans(enable: bool = True) -> Iterator[None]:
         yield
     finally:
         torch.autograd.set_detect_anomaly(prev)
+
+
+def span(name: str):
+    """A context naming the work inside it ``name`` in a trace: a
+    ``record_function`` while a ``torch.profiler`` capture records (on
+    this thread, or on autograd's thread that inherits it), else one
+    shared null context, so that untraced runs pay an attribute read
+    and one call. The card's kernels launched inside it, and those of
+    the backward of its ops, are charged to it by the trace's readers."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def program_cost(fn, *args: Any, **kwargs: Any) -> dict:
@@ -218,38 +230,6 @@ def self_time_table(self_times: dict[tuple[str, str], dict]) -> list[dict]:
     total = sum(r["self_ms"] for r in rows.values()) or 1.0
     return [{"category": c, **r, "share": r["self_ms"] / total}
             for c, r in sorted(rows.items(), key=lambda kv: -kv[1]["self_ms"])]
-
-
-def _sync_result(result: Any) -> None:
-    tensors = result if isinstance(result, (list, tuple)) else [result]
-    for t in tensors:
-        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
-            torch.cuda.synchronize(t.device)
-
-
-class StepTimer:
-    """Wall time over device work: ``start()``, then ``stop(x)`` with ``x``
-    an output (or a sequence of outputs) of the timed work, whose card is
-    synchronized before the clock is read."""
-
-    def __init__(self):
-        self._t0: Optional[float] = None
-        self.total = 0.0
-        self.count = 0
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, result: Any = None) -> float:
-        _sync_result(result)
-        dt = time.perf_counter() - self._t0
-        self.total += dt
-        self.count += 1
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return self.total / max(self.count, 1)
 
 
 def qm8_train_flops_per_graph(hidden, n, k, short, long_, edge_types, tasks, filter_hidden) -> float:

@@ -83,11 +83,6 @@ def test_debug_nans_and_step_timer():
         with pytest.raises(RuntimeError, match="nan"):
             torch.sqrt(x - 1.0).sum().backward()
     assert torch.is_anomaly_enabled() == before
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        timer.start()
-        assert timer.stop(torch.ones(4) * 2) >= 0.0
-    assert timer.count == 3 and timer.mean == pytest.approx(timer.total / 3)
 
 
 def test_the_runner_profiles_both_paths(tmp_path, pack_cache):
