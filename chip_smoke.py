@@ -11,7 +11,7 @@ total last, as ``"total"``); any failure exits non-zero:
    matmuls and cuDNN, and the card's name and power limit are printed,
    with the bfloat16 reduced-precision flag as the process has it and
    as the train, eval and serving steps run it (off).
-2. build: both kernels are built with nvcc from
+2. build: the three sources are built with nvcc from
    ``lanczosnet_torch/csrc``, together (seconds and ``-Xptxas -v``
    report).
 3. kernel: the shared-memory Lanczos kernel (N ≤ 128) against its plain
@@ -21,6 +21,17 @@ total last, as ``"total"``); any failure exits non-zero:
    beside their edges, more steps than nodes (N=8, K=9; N=16 and N=24,
    K=20; these 0.0 from the plain version), an all-zero graph, and QM8-like operators at
    B=64, N=32, K=20; then both timed with CUDA events at B=64 and B=256.
+3b. spmm_kernel: the CSR product kernels (``csrc/spmm_csr.cu``: the
+   forward, its transpose in the backward, the weights' gradient) at the
+   main path's shapes, 10M nodes, 25M edges, F=32 and 1M, 2.5M, F=256,
+   bfloat16, on random operators with dead edges, against the plain
+   version on the card (whose atomics add in another order: forward and
+   ``dx`` within a bfloat16 ulp, ``dval`` within 2^-7 of its terms'
+   magnitudes); one launch of each a call; a forward launches the product
+   kernel alone and a backward no ``index_add``; each timed beside the
+   plain version (once), the library's one call (cuSPARSE through
+   ``torch.sparse``) and two bounds at 3.35 TB/s: its compulsory bytes
+   and its gathered rows' bytes.
 4. serve: the flagship LanczosNet of ``configs/qm8_lanczos_net.yaml``
    at full width, weights drawn from a seeded generator, behind
    ``Predictor`` and ``MicroBatcher``, answers QM8-like requests from
@@ -54,8 +65,8 @@ total last, as ``"total"``); any failure exits non-zero:
    the pack; ``torch_bench_serve.py`` in a process of its own over HTTP
    (1 and 16 clients, 2 s windows) and over the native front with the
    binary wire (16 clients): no request fails, B1 launched;
-   ``torch_bench_sparse.py --feat 128 --steps 3`` (1M nodes, both dtypes):
-   a finite loss in each row. Then poisoned_alloc: B1 and B2 over
+   ``torch_bench_sparse.py --feat 128 --steps 3 --nodes 250000 --dtypes
+   bfloat16``: a finite loss in its row. Then poisoned_alloc: B1 and B2 over
    NaN-poisoned memory, bit for bit a clean call's.
 6. qm8_models: the nine other QM8 configs that train on one card
    (``configs/qm8_{gcn,graph_sage,dcnn,chebynet,gat,mpnn,gpnn}.yaml``,
@@ -220,7 +231,8 @@ total last, as ``"total"``); any failure exits non-zero:
    runs behind the custom operator
    ``lanczosnet::lanczos_tridiag_resid``; the streamed kernel's by path:
    the Cora AdaLanczosNet run, the dense citation configs and the
-   node-sharded ones).
+   node-sharded ones; the three CSR kernels' launches in the
+   single-device sparse configs, with their times at both shapes).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -240,6 +252,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -272,7 +285,10 @@ from lanczosnet_torch.ops.lanczos_cuda import (
     ritz_from_tridiag,
 )
 from lanczosnet_torch.ops.normalize import build_operator_stack
-from lanczosnet_torch.ops.sparse import spmv
+from lanczosnet_torch.ops import sparse as sparse_mod
+from lanczosnet_torch.ops import sparse_cuda
+from lanczosnet_torch.ops.sparse import SparseOp, spmv
+from lanczosnet_torch.ops.sparse_cuda import csr_row_ptr
 from lanczosnet_torch.serve import MicroBatcher, Predictor
 from lanczosnet_torch.serve_http import ModelServer, make_http_server, serve_forever_in_thread
 from lanczosnet_torch.train import citation_runner as citation_runner_mod
@@ -377,6 +393,8 @@ PAIR_STEP_TOL = 1e-4  # the first paired step's loss, card against CPU
 CITATION_EPOCHS = 12  # the depth cut: of max_epoch 200
 CORA_SHAPE = (2708, 1433, 7)  # nodes, features, classes: the real dataset's
 SERVE_BATCH = 64
+# the CSR product kernels' main-path shapes: (nodes, edges, F)
+SPMM_SHAPES = ((10_000_000, 25_000_000, 32), (1_000_000, 2_500_000, 256))
 TOL = 1e-4  # the kernel's contract with its plain version, all six outputs
 OUTPUTS = ("alphas", "betas_full", "q", "p1", "p2", "w4")
 EPS = 1e-6
@@ -552,7 +570,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    built = _build.build_all(["lanczos_tridiag", "lanczos_stream"])
+    built = _build.build_all(["lanczos_tridiag", "lanczos_stream", "spmm_csr"])
     for b in built:
         log = [ln.strip() for ln in b.log.splitlines() if ln.strip()]
         emit("build", kernel=b.name, seconds=b.seconds, library=b.path.name, nvcc_log=log)
@@ -618,6 +636,174 @@ def phase_kernel(dev, launch_ms: float) -> dict:
         emit("kernel_time", batch=b, n=n, k=k, **timing[b],
              recorded_ms_before_redesign=RECORDED_MS_BEFORE_REDESIGN["lanczos_tridiag"][b])
     return {"max_abs_err": worst, "timing": timing}
+
+
+def spmm_case(n: int, e: int, f: int, seed: int, dev) -> tuple[SparseOp, torch.Tensor]:
+    """A random operator of ``n`` nodes and ``e`` edges drawn on the card
+    (uniform ends, so degrees near Poisson(e/n); a twentieth of the
+    edges dead, ``val`` 0), sorted by row as the runner's are, with its
+    ``row_ptr`` and ``col_perm``; and x ``[n, f]`` bfloat16."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    row, order = torch.sort(torch.randint(0, n, (e,), generator=gen, device=dev,
+                                          dtype=torch.int32), stable=True)
+    col = torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)[order]
+    val = torch.rand(e, generator=gen, device=dev) * 0.5 + 0.1
+    val = torch.where(torch.rand(e, generator=gen, device=dev) < 0.05, 0.0, val)
+    op = SparseOp(row=row, col=col, val=val, n=n, rows_sorted=True,
+                  col_perm=torch.argsort(col, stable=True).to(torch.int32),
+                  row_ptr=csr_row_ptr(row, n))
+    x = torch.randn(n, f, generator=gen, device=dev).to(torch.bfloat16)
+    return op, x
+
+
+def spmm_bytes(n_out: int, n_src: int, e: int, f: int, itemsize: int) -> dict:
+    """Each kernel's bytes a call, two ways (``row_ptr`` counted, the
+    transposed view's build not): ``compulsory``, every input row, edge
+    array and output once, what the function needs; ``gathered``, every
+    gathered row once an edge, what a kernel moves where the gathered
+    table (640 / 512 MB at the main path's shapes) is far larger than
+    the 50 MB L2 and the gathers are uniform, so a row is rarely read
+    twice from L2."""
+    row = f * itemsize
+    fwd = 8 * e + 4 * (n_out + 1) + n_out * row  # edges, row_ptr, the output
+    bwd = 8 * e + 4 * (n_src + 1) + n_src * row  # over the transposed view
+    sdd = 8 * e + 4 * (n_out + 1) + n_out * row  # col and dval, row_ptr, g once
+    return {"compulsory": {"spmm": fwd + n_src * row, "spmm_t": bwd + n_out * row,
+                           "sddmm": sdd + n_src * row},
+            "gathered": {"spmm": fwd + e * row, "spmm_t": bwd + e * row,
+                         "sddmm": sdd + e * row}}
+
+
+def library_ms(fn, iters: int, warmup: int):
+    """``cuda_ms`` of a library call, or why the library refused it."""
+    try:
+        return cuda_ms(fn, iters, warmup)
+    except (RuntimeError, NotImplementedError) as err:
+        return f"refused: {str(err).splitlines()[0][:200]}"
+
+
+def library_calls(op: SparseOp, n: int, x: torch.Tensor, g: torch.Tensor, ptr_t) -> dict:
+    """The library's one-call route to each product, on x's dtype: cuSPARSE
+    SpMM through ``torch.sparse.mm`` on ``torch.sparse_csr_tensor`` over
+    ``row_ptr`` (``spmm``), over the transposed view the kernel reads
+    (``spmm_t``) and on the transposed CSR tensor as PyTorch takes it
+    (``spmm_t_transposed_tensor``); cuSPARSE SDDMM through
+    ``torch.sparse.sampled_addmm`` (``sddmm``)."""
+    dt = x.dtype
+    s_csr = torch.sparse_csr_tensor(op.row_ptr, op.col, op.val.to(dt), size=(n, n))
+    col_ptr, row_t, val_t = ptr_t
+    t_csr = torch.sparse_csr_tensor(col_ptr, row_t, val_t.to(dt), size=(n, n))
+    x_t = x.t()
+    return {"spmm": lambda: torch.sparse.mm(s_csr, x),
+            "spmm_t": lambda: torch.sparse.mm(t_csr, g),
+            "spmm_t_transposed_tensor": lambda: torch.sparse.mm(s_csr.t(), g),
+            "sddmm": lambda: torch.sparse.sampled_addmm(s_csr, g, x_t, beta=0.0)}
+
+
+def spmm_shape_check(n: int, e: int, f: int, dev) -> dict:
+    """The three CSR kernels at one main-path shape against the plain
+    version on the card (whose float32 atomics add in another order: the
+    forward and ``dx`` within one bfloat16 ulp, ``dval`` within 2^-7 of
+    the sum of its terms' magnitudes), timed beside it, with the launches
+    of one call and the device kernels of a forward and a backward."""
+    op, x = spmm_case(n, e, f, 0, dev)
+    g = torch.randn(n, f, generator=torch.Generator(dev).manual_seed(1), device=dev).to(x.dtype)
+    out, fails = {"shape": f"N={n} E={e} F={f} bfloat16"}, []
+
+    def grads(fn):
+        xr = x.detach().requires_grad_()
+        vr = op.val.detach().requires_grad_()
+        y = fn(op.replace(val=vr), xr)
+        y.backward(g)
+        return y.detach(), xr.grad, vr.grad
+
+    counts = [c.count for c in CSR_COUNTERS]
+    got = grads(spmv)
+    out["launches_per_call"] = dict(zip(("spmm", "spmm_t", "sddmm"), (
+        c.count - before for c, before in zip(CSR_COUNTERS, counts))))
+    want = grads(sparse_mod._spmv_plain)
+    for name, a, b in zip(("out", "dx"), got, want):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        out[f"{name}_max_abs_err"] = float(err.max())
+        if not bool((err <= 2**-7 * b.abs() + 1e-5).all()):
+            fails.append(f"{name} beyond one bfloat16 ulp of the plain version's")
+    terms = (g.float().index_select(0, op.row) * x.float().index_select(0, op.col)).abs().sum(1)
+    derr = (got[2] - want[2]).abs()
+    out["dval_max_abs_err"] = float(derr.max())
+    if not bool((derr <= 2**-7 * terms + 1e-6).all()):
+        fails.append("dval beyond 2^-7 of its terms' magnitudes")
+    del got, want, terms, derr
+    if out["launches_per_call"] != {"spmm": 1, "spmm_t": 1, "sddmm": 1}:
+        fails.append(f"launches of one call: {out['launches_per_call']}")
+    fwd = device_kernels(lambda: spmv(op, x))
+    xr = x.detach().requires_grad_()
+    y = spmv(op, xr)
+    bwd = device_kernels(lambda: y.backward(g))
+    out["forward_kernels"], out["backward_kernels"] = fwd, bwd
+    if len(fwd) != 1 or "spmm_csr_kernel" not in next(iter(fwd)):
+        fails.append(f"a forward launched {fwd}, not the product kernel alone")
+    if any("indexFunc" in k or "index_add" in k for k in bwd):
+        fails.append(f"the backward ran an index_add: {bwd}")
+
+    ptr_t = sparse_cuda.csr_transpose(op.row, op.col, op.val, op.col_perm, n)
+    library = library_calls(op, n, x, g, ptr_t)
+    timing = {
+        "spmm": (lambda: sparse_cuda._launch_spmm(op.row_ptr, op.col, op.val, x,
+                                                  sparse_cuda.spmm_launches),
+                 lambda: sparse_mod._spmv_plain(op, x)),
+        "spmm_t": (lambda: sparse_cuda._launch_spmm(*ptr_t, g, sparse_cuda.spmm_t_launches),
+                   lambda: sparse_mod._EdgeGather.backward(
+                       types.SimpleNamespace(saved_tensors=(op.col, op.col_perm), n=n),
+                       sparse_mod._edge_scale(op.val.to(g.dtype),
+                                              g.index_select(0, op.row)))),
+        "sddmm": (lambda: sparse_cuda._launch_sddmm(op.row_ptr, op.col, g, x),
+                  lambda: (g.index_select(0, op.row) * x.index_select(0, op.col)).sum(1)),
+    }
+    nbytes = spmm_bytes(n, n, e, f, x.element_size())
+    for name, (kernel, plain) in timing.items():
+        k_ms = cuda_ms(kernel, 20, 3)
+        out[name] = {"kernel_ms": k_ms, "plain_ms": cuda_ms(plain, 1, 1),
+                     "library_ms": library_ms(library[name], 5, 1)}
+        for way in ("compulsory", "gathered"):
+            bound = nbytes[way][name] / HBM_BYTES_PER_S * 1e3
+            out[name].update({f"bound_ms_{way}": bound, f"bound_bytes_{way}": nbytes[way][name],
+                              f"share_of_{way}_bound_pct": 100.0 * bound / k_ms})
+    out["spmm_t"]["library_ms_transposed_tensor"] = library_ms(
+        library["spmm_t_transposed_tensor"], 5, 1)
+    for name, kernel in (("spmm", timing["spmm"][0]), ("spmm_t", timing["spmm_t"][0])):
+        if isinstance(out[name]["library_ms"], float):  # the two answers' distance
+            out[name]["library_max_abs_diff"] = float(
+                (library[name]().float() - kernel().float()).abs().max())
+    del library
+    out["transpose_view_ms"] = cuda_ms(
+        lambda: sparse_cuda.csr_transpose(op.row, op.col, op.val, op.col_perm, n), 10, 2)
+    if fails:
+        raise SmokeFailure(f"spmm_csr at {out['shape']}: " + "; ".join(fails))
+    return out
+
+
+CSR_COUNTERS = (sparse_cuda.spmm_launches, sparse_cuda.spmm_t_launches,
+                sparse_cuda.sddmm_launches)
+# the library's one-call route to each product, timed as library_ms
+LIBRARY_ROUTES = {
+    "spmm": "cuSPARSE SpMM: torch.sparse.mm on torch.sparse_csr_tensor(row_ptr, col, val)",
+    "spmm_t": "cuSPARSE SpMM over the same transposed view (library_ms); on the CSR "
+              "tensor's .t() (library_ms_transposed_tensor)",
+    "sddmm": "cuSPARSE SDDMM: torch.sparse.sampled_addmm(csr, g, x.T, beta=0)",
+}
+
+
+def phase_spmm_kernel(dev, smi: str) -> dict:
+    """The CSR product kernels at the main path's two shapes: the 10M
+    LanczosNet's (10M nodes, 25M edges, F=32, 64-byte rows) and the wide
+    GCN's (1M, 2.5M, F=256, 512-byte rows), both bfloat16."""
+    res = {}
+    for n, e, f in SPMM_SHAPES:
+        res[f] = spmm_shape_check(n, e, f, dev)
+        emit("spmm_kernel", **res[f], nvidia_smi=smi)
+        torch.cuda.empty_cache()
+    return res
 
 
 def plain_reference(pred: Predictor, chunk: list) -> np.ndarray:
@@ -3295,7 +3481,10 @@ def phase_profile_step(dev, smi: str, tmp: Path) -> int:
 BENCH_CUT = {"group": 1, "rounds": 1}  # the depth cut: of torch_bench.py's 10 epochs and 2 groups
 BENCH_SERVE_RUNS = (("--window", "2", "--concurrency", "1,16"),
                     ("--window", "2", "--native", "--binary", "--concurrency", "16"))
-BENCH_SPARSE_ARGS = ("--feat", "128", "--steps", "3")  # both dtypes, 1M nodes
+# the depth cut: bfloat16 alone of the tool's two dtypes (each a process
+# of its own), 250k of its 1M nodes
+BENCH_SPARSE_ARGS = ("--feat", "128", "--steps", "3", "--nodes", "250000", "--dtypes",
+                     "bfloat16")
 
 
 def tool_run(name: str, args, timeout: float = 300) -> tuple[list[dict], str, float]:
@@ -3320,7 +3509,7 @@ def phase_bench(dev, smi: str) -> dict[str, int]:
     in (0, 1], B1 launched by the pack. ``torch_bench_serve.py`` over
     HTTP (1 and 16 clients) and over the native front with the binary
     wire (16): no request fails, B1 launched. ``torch_bench_sparse.py`` at
-    F=128, 3 steps, 1M nodes: a row with a finite loss for each dtype.
+    F=128, 3 steps, 250k nodes, bfloat16: a row with a finite loss.
     → B1's launches by path."""
     tb = script("torch_bench")
     lanczos_cuda.launches.reset()
@@ -3351,7 +3540,7 @@ def phase_bench(dev, smi: str) -> dict[str, int]:
     launches["bench_serve"] = serve_launches
     rows, _, wall = tool_run("torch_bench_sparse", BENCH_SPARSE_ARGS)
     emit("bench_sparse", seconds=wall, args=list(BENCH_SPARSE_ARGS), rows=rows, nvidia_smi=smi)
-    if len(rows) != 2 or not all(np.isfinite(row.get("loss", np.nan)) for row in rows):
+    if len(rows) != 1 or not all(np.isfinite(row.get("loss", np.nan)) for row in rows):
         raise SmokeFailure(f"torch_bench_sparse.py: rows {rows}")
     return launches
 
@@ -3430,6 +3619,7 @@ def main() -> None:
     timed("build", phase_build)
     barrier = timed("barrier", phase_barrier, dev)
     kern = timed("kernel", phase_kernel, dev, barrier["small_launch_ms"])
+    spmm = timed("spmm_kernel", phase_spmm_kernel, dev, smi)
     serve_launches = timed("serve", phase_serve, dev, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as runs:
         runs = Path(runs)
@@ -3455,8 +3645,10 @@ def main() -> None:
                                            Path(runs) / "dense")
         node_launches = timed("node_sharded_citation", phase_node_sharded_citation, dev, smi,
                               Path(runs) / "node_sharded", dense_runs)
+        csr_before = [c.count for c in CSR_COUNTERS]
         graphs, peaks = timed("sparse_citation", phase_sparse_citation, dev, smi,
                               Path(runs) / "sparse")
+        csr_main = [c.count - b for c, b in zip(CSR_COUNTERS, csr_before)]
         timed("mem_probe", phase_mem_probe, dev, smi, Path(runs) / "mem_probe", graphs, peaks)
         timed("sharded_citation", phase_sharded_citation, dev, smi, Path(runs) / "sharded",
               graphs)
@@ -3518,7 +3710,21 @@ def main() -> None:
         "launches_counts": "cooperative launches on the device",
         "kernel_ms_l2_flushed": ts["kernel_ms_l2_flushed"],
         "s_read_k_times_ms": ts["s_read_k_times_ms"],
-    }]}), flush=True)
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": "lanczosnet_torch/csrc/spmm_csr.cu",
+        "replaces": "none: XLA's take and segment_sum (lanczosnet_tpu/ops/sparse.py:spmv)",
+        "launches": launches,
+        "launches_by_path": {"sparse_citation": launches},
+        "by_shape": {f: {**spmm[f][name], "max_abs_err": spmm[f][err],
+                         "launches_per_call": spmm[f]["launches_per_call"][name]}
+                     for f in spmm},
+        "library_ms": {f: spmm[f][name]["library_ms"] for f in spmm},
+        "library": LIBRARY_ROUTES[name],
+    } for name, err, launches in zip(("spmm", "spmm_t", "sddmm"),
+                                     ("out_max_abs_err", "dx_max_abs_err", "dval_max_abs_err"),
+                                     csr_main))]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,15 @@ sources (``index_select``) and a segment sum at the destinations
 (``ops/lanczos.py:lanczos_tridiag_matvec``) runs with that product as
 its matvec, so LanczosNet's Ritz machinery works at sparse scale.
 
+The product ``spmv`` on a CUDA tensor is one hand-written kernel
+(``ops/sparse_cuda.py:csr_spmm``, ``csrc/spmm_csr.cu``) over the
+destination-major rows ``SparseOp.row_ptr``, its backward the same
+kernel over the transposed view; in ring form one launch a hop, over
+that hop's slice (``RingOp.row_ptr``). On a CPU tensor it is the plain
+version ``_spmv_plain``, the gather, edge scale and segment sum below,
+which the kernel matches bit for bit. Every other op here runs on
+ATen's gathers and segment sums on either device.
+
 Dtypes: a 16-bit message is widened to float32 before every segment
 sum and narrowed after it (``_segsum``), so no ``index_add_`` runs in
 bfloat16: CUDA's 16-bit atomics are slow and lose mantissa on
@@ -16,7 +25,8 @@ high-degree nodes. The gather of node states at the edge sources is
 the cotangents at ``col`` in ``col_perm`` order, widened to float32,
 in chunks above a size bound. ``LANCZOSNET_BF16_SCATTER``, the JAX
 package's opt-in, keeps that sorted scatter in the cotangent's own
-16-bit dtype.
+16-bit dtype; the kernel's backward of ``spmv`` on the card sums in
+float32 always.
 
 Sharded forms, each a rank's piece (``parallel/mesh.py``) tagged with
 the ``Comm`` of its group, so that model code is the same sharded and
@@ -55,6 +65,7 @@ import torch.nn.functional as F
 from lanczosnet_torch.ops.eigh import eigh_dispatch
 from lanczosnet_torch.ops.lanczos import lanczos_tridiag_matvec, tridiag_matrix
 from lanczosnet_torch.ops.precision import f32_matmul
+from lanczosnet_torch.ops.sparse_cuda import csr_row_ptr, csr_spmm
 from lanczosnet_torch.parallel.comm import Comm, all_gather_rows, pmax, psum, ring_hop
 from lanczosnet_torch.utils.profiling import span
 
@@ -86,6 +97,10 @@ class SparseOp:
     no start weight in ``sparse_lanczos_ritz``), None when every row is
     real. ``axis`` (edge-sharded) or ``gather_axis`` (node-sharded) is
     the ``Comm`` of the group whose ranks hold the other pieces.
+    ``row_ptr [n+1]`` int32, where ``row`` is sorted, gives row r's
+    edges as ``row_ptr[r]:row_ptr[r+1]`` (``sparse_cuda.csr_row_ptr``):
+    the CSR form the card's product kernel walks; None where the op was
+    built without it, which only the CPU's plain version takes.
     """
 
     row: torch.Tensor
@@ -97,6 +112,7 @@ class SparseOp:
     n_true: Optional[int] = None
     axis: Optional[Comm] = None
     gather_axis: Optional[Comm] = None
+    row_ptr: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.axis is not None and self.gather_axis is not None:
@@ -104,11 +120,16 @@ class SparseOp:
                              "(gather_axis)")
 
     def replace(self, **changes) -> "SparseOp":
+        """A copy with ``changes``; new ``row`` or ``n`` without a new
+        ``row_ptr`` drops the old one, which described the old rows."""
+        if ("row" in changes or "n" in changes) and "row_ptr" not in changes:
+            changes["row_ptr"] = None
         return dataclasses.replace(self, **changes)
 
     def to(self, device) -> "SparseOp":
         return self.replace(row=_move(self.row, device), col=_move(self.col, device),
-                            val=_move(self.val, device), col_perm=_move(self.col_perm, device))
+                            val=_move(self.val, device), col_perm=_move(self.col_perm, device),
+                            row_ptr=_move(self.row_ptr, device))
 
     @property
     def num_edges(self) -> int:
@@ -123,6 +144,10 @@ class RingOp:
     into this rank's block whose sources lie in block s, ``row`` local to
     this rank's block and ``col`` local to block s (dead edges have
     ``val`` 0). ``n`` is a block's rows; ``axis`` the ring's ``Comm``.
+    Each slice's rows are non-decreasing, and ``row_ptr [D, n+1]`` int32
+    gives slice s's ``csr_row_ptr`` (the card's product kernel walks
+    it); None where the op was built without it, which only the CPU's
+    plain version takes.
     """
 
     row: torch.Tensor
@@ -131,13 +156,14 @@ class RingOp:
     n: int
     axis: Comm
     n_true: Optional[int] = None
+    row_ptr: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "RingOp":
         return dataclasses.replace(self, **changes)
 
     def to(self, device) -> "RingOp":
         return self.replace(row=self.row.to(device), col=self.col.to(device),
-                            val=self.val.to(device))
+                            val=self.val.to(device), row_ptr=_move(self.row_ptr, device))
 
     @property
     def num_edges(self) -> int:
@@ -171,10 +197,12 @@ def coo_arrays(edges: np.ndarray, n: int, kind: str = "sym", eps: float = 1e-12)
 
 
 def sparse_op_from_arrays(arrays: dict, n: int, device) -> SparseOp:
-    """The whole operator of ``coo_arrays`` on ``device``."""
+    """The whole operator of ``coo_arrays`` on ``device``, its ``row_ptr``
+    built there."""
     as_t = lambda k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)  # noqa: E731
-    return SparseOp(row=as_t("row"), col=as_t("col"), val=as_t("val"), n=int(n),
-                    rows_sorted=True, col_perm=as_t("col_perm"))
+    row = as_t("row")
+    return SparseOp(row=row, col=as_t("col"), val=as_t("val"), n=int(n), rows_sorted=True,
+                    col_perm=as_t("col_perm"), row_ptr=csr_row_ptr(row, int(n)))
 
 
 def sparse_sym_operator(edges: np.ndarray, n: int, eps: float = 1e-12,
@@ -309,11 +337,19 @@ def _ring(rop: RingOp, blocks):
 
 def ring_spmv(rop: RingOp, x: torch.Tensor) -> torch.Tensor:
     """``S @ x`` for this rank's rows, ``x`` its block; the source blocks
-    come round the ring, so at most two are held at a time."""
+    come round the ring, so at most two are held at a time. Each hop's
+    product is the card's kernel over its slice for a CUDA tensor, the
+    plain version's gather, scale and segment sum for any other."""
+    if x.device.type == "cuda" and rop.row_ptr is None:
+        raise ValueError("ring_spmv on the card needs the operator's row_ptr: build it with "
+                         "parallel/mesh.py:ring_op_piece")
     acc = None
     for src, (block,) in _ring(rop, (x,)):
         rows, cols, vals = _ring_slice(rop, src)
-        part = _segsum(_edge_scale(vals.to(x.dtype), _gather(block, cols)), rows, rop.n)
+        if block.device.type == "cuda":
+            part = csr_spmm(rop.row_ptr[src], rows, cols, vals, None, block)
+        else:
+            part = _segsum(_edge_scale(vals.to(x.dtype), _gather(block, cols)), rows, rop.n)
         acc = part if acc is None else acc + part
     return acc
 
@@ -331,15 +367,31 @@ def ring_mean_spmv(rop: RingOp, x: torch.Tensor) -> torch.Tensor:
     return acc / _per_node(torch.clamp_min(deg, 1.0), x)
 
 
+def _spmv_plain(op: SparseOp, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of the card's product kernel: the gather, the
+    edge scale in x's dtype and the float32 segment sum, which on the CPU
+    adds in edge order as the kernel does."""
+    xg = edge_gather(op, x)
+    return _edge_sum(op, _segsum(_edge_scale(op.val.to(x.dtype), xg), op.row, op.n))
+
+
 def spmv(op: AnyOp, x: torch.Tensor) -> torch.Tensor:
     """``S @ x`` for ``x [N]`` or ``[N, F]`` (this rank's block when node-
     sharded), in x's dtype (the weights are cast to it); traced as the
-    span ``sparse.spmv``."""
+    span ``sparse.spmv``. A CUDA tensor goes to the CSR kernel
+    (``sparse_cuda.csr_spmm``, which needs ``op.row_ptr``), any other to
+    ``_spmv_plain``."""
     with span("sparse.spmv"):
         if isinstance(op, RingOp):
             return ring_spmv(op, x)
-        xg = edge_gather(op, x)
-        return _edge_sum(op, _segsum(_edge_scale(op.val.to(x.dtype), xg), op.row, op.n))
+        if x.device.type != "cuda":
+            return _spmv_plain(op, x)
+        if op.row_ptr is None:
+            raise ValueError("spmv on the card needs the operator's row_ptr: build it with "
+                             "sparse_op_from_arrays or parallel/mesh.py:sparse_op_piece, or "
+                             "pass row_ptr=csr_row_ptr(row, n) for sorted rows")
+        xg = gather_nodes(op, x)
+        return _edge_sum(op, csr_spmm(op.row_ptr, op.row, op.col, op.val, op.col_perm, xg))
 
 
 def live_degree(op: AnyOp) -> torch.Tensor:

@@ -200,18 +200,27 @@ def sparse_op_piece(piece: dict, n: int, comm: Comm, mode: str, device,
     """A rank's ``SparseOp`` from its slice of ``shard_sparse_arrays``
     (``mode`` ``"edges"``: ``n`` the whole graph's nodes) or of
     ``node_shard_arrays`` (``"nodes"``: ``n`` the block's rows). Both
-    keep each piece's rows non-decreasing, so ``rows_sorted`` holds."""
+    keep each piece's rows non-decreasing, so ``rows_sorted`` holds and
+    the piece's ``row_ptr`` (over its ``n`` rows) is built on ``device``."""
     from lanczosnet_torch.ops.sparse import SparseOp
+    from lanczosnet_torch.ops.sparse_cuda import csr_row_ptr
 
     axes = {"axis": comm} if mode == "edges" else {"gather_axis": comm, "n_true": n_true}
-    return SparseOp(row=_tensor(piece["row"], device), col=_tensor(piece["col"], device),
+    row = _tensor(piece["row"], device)
+    return SparseOp(row=row, col=_tensor(piece["col"], device),
                     val=_tensor(piece["val"], device), n=int(n), rows_sorted=True,
-                    col_perm=_tensor(piece["col_perm"], device), **axes)
+                    col_perm=_tensor(piece["col_perm"], device),
+                    row_ptr=csr_row_ptr(row, int(n)), **axes)
 
 
 def ring_op_piece(piece: dict, n_loc: int, comm: Comm, device, n_true: Optional[int] = None):
-    """A rank's ``RingOp`` from its slice of ``ring_shard_arrays``."""
+    """A rank's ``RingOp`` from its slice of ``ring_shard_arrays``, whose
+    slices keep their rows non-decreasing, so each slice's ``row_ptr``
+    (over the block's ``n_loc`` rows) is built on ``device``."""
     from lanczosnet_torch.ops.sparse import RingOp
+    from lanczosnet_torch.ops.sparse_cuda import csr_row_ptr
 
-    return RingOp(row=_tensor(piece["row"], device), col=_tensor(piece["col"], device),
-                  val=_tensor(piece["val"], device), n=int(n_loc), axis=comm, n_true=n_true)
+    row = _tensor(piece["row"], device)
+    return RingOp(row=row, col=_tensor(piece["col"], device),
+                  val=_tensor(piece["val"], device), n=int(n_loc), axis=comm, n_true=n_true,
+                  row_ptr=torch.stack([csr_row_ptr(r, int(n_loc)) for r in row]))

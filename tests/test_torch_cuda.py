@@ -39,7 +39,11 @@ forward) give one device's logits, losses and gradients. The Jacobi
 eigensolver gives cuSOLVER's Ritz values and V tanh(D) Vᵀ on the
 flagship's tridiagonals (1e-4), and both kernels over a caching
 allocator poisoned with NaN blocks give a clean call's outputs bit for
-bit.
+bit. The CSR product kernels give the CPU's plain version bit for bit
+(forward and the backward to x, which both add in edge order; the
+weights' gradient within 2^-7 of its terms' magnitudes) at F = [N], 7,
+32, 256, on edge- and node-sharded pieces and under remat's replay,
+one launch a call and never the plain version.
 """
 
 import copy
@@ -777,3 +781,202 @@ def test_both_kernels_over_a_poisoned_allocator_equal_clean_calls(card):
     check = poisoned_lanczos_check(card, np.random.default_rng(1))
     assert {name: c["bit_equal"] and c["finite"] for name, c in check.items()} == {
         "B1": True, "B2": True}, check
+
+
+# The CSR product kernels (csrc/spmm_csr.cu). The plain version on the CPU
+# adds in edge order (index_add), as the kernels do, so the forward and the
+# backward to x are held to it bit for bit; the weights' gradient sums its
+# products in another order than autograd's bfloat16 products, so it is held
+# to 2^-7 of the sum of its terms' magnitudes (float32: 1e-6 of it).
+
+def csr_graph(n: int, m: int, seed: int, hub: int = 0):
+    """A sym-normalized operator on the CPU: ``m`` random pairs, nodes 0
+    and n-1 isolated (empty rows), a fifth of the edges dead, and with
+    ``hub`` node 1 joined to ``hub`` others."""
+    from lanczosnet_torch.ops import sparse as tsp
+
+    rng = np.random.default_rng(seed)
+    a, b = rng.integers(2, n - 1, m), rng.integers(2, n - 1, m)
+    pairs = [np.stack([a, b], 1)]
+    if hub:
+        pairs.append(np.stack([np.ones(hub, np.int64), np.arange(2, hub + 2) % (n - 1)], 1))
+    pairs = np.concatenate(pairs)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    op = tsp.sparse_sym_operator(np.unique(np.sort(pairs, 1), axis=0), n)
+    return tsp.masked_val_op(op, torch.from_numpy(rng.random(op.num_edges) > 0.2))
+
+
+def csr_counts():
+    from lanczosnet_torch.ops import sparse_cuda
+
+    return tuple(c.count for c in (sparse_cuda.spmm_launches, sparse_cuda.spmm_t_launches,
+                                   sparse_cuda.sddmm_launches))
+
+
+def spmv_and_grads(fn, op, x, g, val_grad: bool):
+    """``fn(op, x)``, and the gradients of ``<fn(op, x), g>`` in x and,
+    with ``val_grad``, in ``op.val``."""
+    xr = x.detach().clone().requires_grad_()
+    val = op.val.detach().clone().requires_grad_(val_grad)
+    out = fn(op.replace(val=val), xr)
+    out.backward(g)
+    return out.detach(), xr.grad, val.grad
+
+
+def dval_bound(op, x, g, dtype):
+    terms = (g.float().index_select(0, op.row) * x.float().index_select(0, op.col))
+    terms = terms.reshape(op.num_edges, -1).abs().sum(1)
+    return (2**-7 if dtype == torch.bfloat16 else 1e-6) * terms + 1e-30
+
+
+CSR_SHAPES = {"vector": (), "f32": (32,), "f7": (7,), "f256": (256,)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(CSR_SHAPES))
+def test_csr_kernels_equal_the_cpu_plain_version(card, shape, dtype):
+    """Empty rows, dead edges and a row of degree 1,200; F = [N], 7, 32,
+    256: forward and dx bit for bit the CPU's plain version, dval within
+    its bound; one launch of each kernel a call."""
+    from lanczosnet_torch.ops import sparse as tsp
+
+    op = csr_graph(3000, 9000, 0, hub=1200)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((3000,) + CSR_SHAPES[shape]).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((3000,) + CSR_SHAPES[shape]).astype(np.float32))
+    x, g = x.to(dtype), g.to(dtype)
+    before = csr_counts()
+    got = spmv_and_grads(tsp.spmv, op.to(card), x.to(card), g.to(card), True)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(csr_counts(), before)) == (1, 1, 1)
+    want = spmv_and_grads(tsp._spmv_plain, op, x, g, True)
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu(), b)
+    err = (got[2].cpu() - want[2]).abs()
+    assert bool((err <= dval_bound(op, x, g, dtype)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("mode", ["edges", "nodes", "ring"])
+def test_csr_kernels_on_sharded_pieces_equal_the_cpu(card, mode):
+    """A rank's piece of ``parallel/mesh.py`` (edge-sharded: a slice of
+    the edges, padded with dead edges at the last row; node-sharded: a
+    block's rows against every source, padded; ring: each hop's slice,
+    padded, against its source block): the kernel on the piece, given
+    the x it reads, equals the plain version bit for bit, forward and
+    dx, bfloat16."""
+    from lanczosnet_torch.ops import sparse as tsp
+    from lanczosnet_torch.parallel import mesh
+
+    whole = csr_graph(2002, 6000, 2)  # 2002 nodes: the node blocks are padded
+    args = (whole.row.numpy(), whole.col.numpy(), whole.val.numpy(), 2002, 4)
+    if mode == "ring":
+        arrays, n_pad = mesh.ring_shard_arrays(*args)
+        n = n_pad // 4
+        one = type("OneRank", (), {"size": 1, "rank": 0})()
+        rng = np.random.default_rng(4)
+        for r in range(4):
+            rop = mesh.ring_op_piece({k: v[r] for k, v in arrays.items()}, n, one, "cpu")
+            for s in range(4):
+                # the hop that brings block s: a one-slice ring
+                hop = rop.replace(row=rop.row[s:s + 1], col=rop.col[s:s + 1],
+                                  val=rop.val[s:s + 1], row_ptr=rop.row_ptr[s:s + 1])
+                x, g = (torch.from_numpy(rng.standard_normal((n, 32)).astype(np.float32))
+                        .bfloat16() for _ in range(2))
+                got = spmv_and_grads(tsp.spmv, hop.to(card), x.to(card), g.to(card), False)
+                want = spmv_and_grads(tsp.spmv, hop, x, g, False)
+                for a, b in zip(got[:2], want[:2]):
+                    assert torch.equal(a.cpu(), b), (mode, r, s)
+        return
+    if mode == "edges":
+        arrays, n, n_src = mesh.shard_sparse_arrays(*args), 2002, 2002
+    else:
+        arrays, n_pad = mesh.node_shard_arrays(*args)
+        n, n_src = n_pad // 4, n_pad
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((n_src, 32)).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.standard_normal((n, 32)).astype(np.float32)).bfloat16()
+    for r in range(4):
+        piece = mesh.sparse_op_piece({k: v[r] for k, v in arrays.items()}, n, None, mode, "cpu")
+        got = spmv_and_grads(tsp.spmv, piece.to(card), x.to(card), g.to(card), False)
+        want = spmv_and_grads(tsp._spmv_plain, piece, x, g, False)
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a.cpu(), b), (mode, r)
+
+
+def test_csr_kernels_under_remat_replay(card):
+    """Two products under ``torch.utils.checkpoint`` (non-reentrant, as
+    ``remat: layers`` runs them): the forward, the replay in the backward
+    and the two transposed products all launch kernels, and the
+    gradients equal those without the checkpoint bit for bit (the sums'
+    order is fixed, where atomics changed it)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from lanczosnet_torch.ops import sparse as tsp
+
+    op = csr_graph(4000, 12000, 4).to(card)
+    x = torch.randn(4000, 32, generator=torch.Generator().manual_seed(0)).bfloat16().to(card)
+    w = torch.randn(32, 32, generator=torch.Generator().manual_seed(1)).bfloat16().to(card)
+
+    def layer(h):
+        return tsp.spmv(op, torch.relu(tsp.spmv(op, h) @ w))
+
+    grads = []
+    for remat in (False, True):
+        xr = x.detach().requires_grad_()
+        before = csr_counts()
+        y = checkpoint(layer, xr, use_reentrant=False) if remat else layer(xr)
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        grads.append(xr.grad)
+        counted = tuple(a - b for a, b in zip(csr_counts(), before))
+        assert counted == ((4 if remat else 2), 2, 0), counted
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_csr_kernels_never_reach_the_plain_version_on_the_card(card, monkeypatch):
+    """A CUDA ``spmv`` and its backward, the weights' gradient too, with
+    the plain version and ATen's segment sum made to raise; a CUDA op
+    without ``row_ptr`` raises rather than run another path."""
+    from lanczosnet_torch.ops import sparse as tsp
+
+    def refuse(*_):
+        raise AssertionError("the plain version ran on the card")
+
+    op = csr_graph(1000, 3000, 5).to(card)
+    monkeypatch.setattr(tsp, "_spmv_plain", refuse)
+    monkeypatch.setattr(tsp, "_segsum", refuse)
+    monkeypatch.setattr(tsp, "_EdgeGather", None)
+    x = torch.randn(1000, 16, device=card)
+    out, dx, dval = spmv_and_grads(tsp.spmv, op, x, torch.ones_like(x), True)
+    assert out.is_cuda and dx.is_cuda and dval.is_cuda
+    with pytest.raises(ValueError, match="row_ptr"):
+        tsp.spmv(op.replace(row_ptr=None), x)
+
+
+@pytest.mark.parametrize("name,remat,forward,backward", [
+    ("LanczosNet", "layers", 12, 2), ("LanczosNet", None, 8, 2), ("GCN", None, 4, 1)])
+def test_an_epoch_on_the_card_runs_every_product_through_the_kernel(card, tmp_path, name, remat,
+                                                                   forward, backward):
+    """One epoch (the step and ``accuracy("val")``, as the benchmark's
+    unit) of the bfloat16 sparse LanczosNet and GCN: one forward kernel
+    launch a ``sparse.spmv`` span (the step's products, remat's replay,
+    the validation pass), one transposed launch a product whose input
+    needs a gradient (layer 0's do not), no weight gradient."""
+    from lanczosnet_torch.train.optim import build_optimizer
+
+    runner = sparse_runner_on(card, name, tmp_path, dtype="bfloat16", dropout=0.5)
+    runner.model.set_remat_layers(remat == "layers")
+    optimizer, scheduler, clip = build_optimizer(runner.model.parameters(), runner.config["train"],
+                                                 1)
+    step = runner.make_train_step(optimizer, scheduler, clip)
+    step()
+    runner.accuracy("val")
+    before = csr_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step()
+        runner.accuracy("val")
+    torch.cuda.synchronize()
+    spans = sum(e.count for e in prof.key_averages() if e.key == "sparse.spmv")
+    assert spans == forward
+    assert tuple(a - b for a, b in zip(csr_counts(), before)) == (forward, backward, 0)
