@@ -5,7 +5,11 @@ names a configuration (``configs/<config>.json``, which names its
 reference and count modules) and a traffic mix (``traffic/<mix>.json``,
 whose ``kind`` is ``train`` or ``infer``); its limits are
 ``limits/<workload>.json`` and its per-layer metrics' readers
-``metrics/<name>.py`` (``metric_reader``).
+``metrics/<name>.py`` (``metric_reader``). So a configuration and its
+cells are added by new files alone (the configuration's file with the
+node count its graph is cut to in the CPU tests, ``cpu_nodes``; a limits
+file a cell) and new entries in ``BENCHMARK.json``, the cells' names
+appended to the ``workloads`` of the metrics they report.
 
 Set-up (``setup_s``, from the start of ``run.py``): the graph is drawn on
 the card from the seed (``graphgen.py``), the peak memory counter is reset,

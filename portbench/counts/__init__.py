@@ -13,14 +13,24 @@ in the compute dtype, parameters, Ritz vectors and edge weights in
 float32, edge indices in int32); the ``[E, F]`` rows that an
 implementation gathers are not counted.
 
-Beside the work, ``sparse_calls`` is what the sparse products cost in
-calls of the ATen ops that the port runs them on today (``SPARSE_OPS``),
-remat's replay included: a forward product one ``index_select`` and one
-``index_add``; a backward one (``Sᵀ g``) one ``index_select`` of the
-cotangent at the rows and, per chunk of its sorted scatter, two
-``index_select`` and one ``index_add_``. It is no cost the benchmark
-charges, only the fingerprint by which ``sparse_ops_roofline_pct``
-knows that these ops still carry every sparse product and nothing else.
+Beside the work, two fingerprints by which a metric knows that what it
+times carries every sparse product and nothing else; neither is a cost
+the benchmark charges:
+
+- ``sparse_launches``: the launches of the port's CSR product kernels
+  (``spmm_csr_kernel``, ``spmm_sddmm_kernel``) a unit, one for each
+  forward product (remat's replay and the validation forward included),
+  one for each backward product (the kernel over the transposed view)
+  and one for each edge-weight gradient; ``sparse_ops_roofline_pct``
+  reads it.
+- ``sparse_calls``: calls of the ATen ops that ran the products before
+  the kernels (``SPARSE_OPS``), and still run them on the CPU: a forward
+  product one ``index_select`` and one ``index_add``; a backward one
+  (``Sᵀ g``) one ``index_select`` of the cotangent at the rows and, per
+  chunk of its sorted scatter, two ``index_select`` and one
+  ``index_add_``. Only its ``aten::index_add`` entry, one a forward
+  product, serves a metric: the count of ``sparse.spmv`` spans that
+  ``sparse_span_roofline_pct`` expects.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ class Tally:
     flops: float = 0.0
     bytes: float = 0.0
     sparse_bytes: float = 0.0
+    sparse_launches: int = 0
     sparse_calls: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(SPARSE_OPS, 0))
 
     def product(self, m: int, k: int, n: int, a: int, b: int, out: int) -> None:
@@ -70,8 +81,9 @@ class Tally:
         self.replayed_sparse(e, f, backward)
 
     def replayed_sparse(self, e: int, f: int, backward: bool = False) -> None:
-        """The calls of a sparse product; alone, of one that remat runs
-        again, whose work is not counted."""
+        """The launches and calls of a sparse product; alone, of one that
+        remat runs again, whose work is not counted."""
+        self.sparse_launches += 1
         calls = self.sparse_calls
         if backward:
             c = scatter_chunks(e, f)
@@ -80,6 +92,11 @@ class Tally:
         else:
             calls["aten::index_select"] += 1
             calls["aten::index_add"] += 1
+
+    def edge_weight_grad(self) -> None:
+        """The gradient of a product's edge weights in a backward: one
+        launch of ``spmm_sddmm_kernel``, whose work is not counted."""
+        self.sparse_launches += 1
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)

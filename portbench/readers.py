@@ -23,7 +23,7 @@ from portbench import traces
 class Ctx:
     kind: str  # "train" (a unit is an epoch) or "infer" (a unit is a pass)
     setup: dict  # the runner's ``setup`` event of ``metrics.jsonl``
-    counts: dict  # counts/<family>.py of one unit: flops, bytes, sparse_bytes, sparse_calls
+    counts: dict  # counts/<family>.py of one unit: ``counts.Tally``'s fields
     units: int  # units in the traced window
     window_s: float  # the traced window on the host clock
     spectral: bool = False  # whether the model has Ritz pairs

@@ -13,13 +13,12 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-# nodes a cell's graph is cut to on the CPU (the widths stay as configured)
-TINY_NODES = {"ten_million_sparse_lanczos_net": 3000, "million_sparse_gcn_wide": 2000}
-
 
 def shrink(cfg: dict) -> dict:
+    """The configuration with its graph cut to the nodes its file gives
+    the CPU (``cpu_nodes``); the widths stay as configured."""
     cfg = copy.deepcopy(cfg)
-    cfg["dataset"]["num_nodes"] = TINY_NODES[cfg["name"]]
+    cfg["dataset"]["num_nodes"] = int(cfg["cpu_nodes"])
     return cfg
 
 

@@ -3,10 +3,13 @@ forward's dense FLOPs against ``FlopCounterMode`` on the reference."""
 
 from __future__ import annotations
 
+import json
+
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from conftest import ROOT
 from portbench.counts import gcn, lanczos_net
 from portbench.reference import gcn as ref_gcn
 from portbench.reference import lanczos_net as ref_lnet
@@ -76,6 +79,40 @@ def test_sparse_calls_by_hand():
     assert counts.scatter_chunks(2_500_000, 256) == 3
     assert counts.scatter_chunks(16_000_000, 32) == 1  # 2.048 GB, under 2 GiB: whole
     assert counts.scatter_chunks(10, 7) == 1
+
+
+def _cell_model(name):
+    cfg = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())
+    return cfg["model"], cfg["train"].get("remat") == "layers"
+
+
+def test_sparse_launches_by_hand():
+    """Launches of the CSR product kernels a unit, at the cells' own models
+    (they depend on no size): 10M LanczosNet, two layers of S h and S² h,
+    remat by layers: the step's 4 forward products, remat's replay of them
+    (4), the backward's 2 past layer 0, the validation forward's 4; a
+    scoring pass 4; the wide GCN, one product a layer: 2, the backward's 1,
+    the validation's 2. No weight needs a gradient: no sddmm launch."""
+    from portbench import counts
+
+    n, e, f, c = 10, 20, 4, 2
+    lnet, remat = _cell_model("ten_million_sparse_lanczos_net")
+    assert remat
+    assert lanczos_net.epoch(lnet, n, e, f, c, remat=True)["sparse_launches"] == 14
+    assert lanczos_net.epoch(lnet, n, e, f, c)["sparse_launches"] == 10
+    assert lanczos_net.infer_pass(lnet, n, e, f, c)["sparse_launches"] == 4
+    gcn_model, remat = _cell_model("million_sparse_gcn_wide")
+    assert not remat
+    assert gcn.epoch(gcn_model, n, e, f, c)["sparse_launches"] == 5
+    assert gcn.infer_pass(gcn_model, n, e, f, c)["sparse_launches"] == 2
+    # an edge-weight gradient is one launch more and moves no other count
+    t = counts.Tally()
+    t.sparse(n, e, f, 2, backward=True)
+    before = t.as_dict()
+    t.edge_weight_grad()
+    assert t.sparse_launches == 2
+    assert {k: v for k, v in t.as_dict().items() if k != "sparse_launches"} == {
+        k: v for k, v in before.items() if k != "sparse_launches"}
 
 
 def _op(n, e, gen):

@@ -4,12 +4,14 @@ and the command refuses to run without the card."""
 
 from __future__ import annotations
 
+import filecmp
 import json
 import re
 import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -171,6 +173,68 @@ def test_a_checkout_of_the_benchmark_alone_cannot_run(tmp_path, tiny):
                          text=True, timeout=120)
     assert res.returncode != 0 and res.stdout.strip() == ""
     assert "lanczosnet_torch" in res.stderr
+
+
+def _files(root):
+    return {p.relative_to(root) for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_configuration_and_a_cell_are_added_by_new_files_alone(tmp_path):
+    """A configuration and its cell added as a later change adds them: a
+    configuration file (with its ``cpu_nodes``) and a limits file under
+    ``portbench/``, and in ``BENCHMARK.json`` new ``configs`` and
+    ``workloads`` entries and the cell's name appended to each metric that
+    lists the cell it is copied from. The copy runs the new cell on the
+    CPU, untraced and traced, correct, and no file it had before changed."""
+    src, new = "ten_million_sparse_lanczos_net", "added_sparse_lanczos_net"
+    src_cell, cell = f"{src}-train", f"{new}-train"
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cfg = json.loads((ROOT / "portbench" / "configs" / f"{src}.json").read_text())
+    cfg.update(name=new, cpu_nodes=2500)
+    (tmp_path / "portbench" / "configs" / f"{new}.json").write_text(json.dumps(cfg, indent=2))
+    shutil.copy(ROOT / "portbench" / "limits" / f"{src_cell}.json",
+                tmp_path / "portbench" / "limits" / f"{cell}.json")
+    spec = json.loads(json.dumps(BENCH))
+    conf = dict(next(c for c in spec["configs"] if c["name"] == src))
+    spec["configs"].append({**conf, "name": new, "file": f"portbench/configs/{new}.json"})
+    work = next(w for w in spec["workloads"] if w["name"] == src_cell)
+    spec["workloads"].append({**work, "name": cell, "config": new})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if src_cell in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec, indent=2))
+
+    # the copy's harness first on the path, the program from the repository behind it
+    code = ("import json, sys, time;"
+            f"sys.path[:0] = ['.', 'portbench/tests']; sys.path.append({str(ROOT)!r});"
+            "from conftest import shrink; from portbench import bench;"
+            "print(bench.__file__);"
+            f"c = bench.Cell({cell!r});"
+            "print(json.dumps([m['name'] for m in c.end_to_end() + c.per_layer()]));"
+            "[print(json.dumps(bench.run_cell(c.name, 2**31 + 13, 0.3, trace, 'cpu',"
+            " time.perf_counter(), shrink)[0])) for trace in (False, True)]")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    where, names, untraced, traced = res.stdout.strip().splitlines()[-4:]
+    assert where.startswith(str(tmp_path / "portbench"))
+    names = json.loads(names)
+    src_names = [m["name"] for m in bench.Cell(src_cell).end_to_end()
+                 + bench.Cell(src_cell).per_layer()]
+    assert names == src_names
+    untraced, traced = json.loads(untraced), json.loads(traced)
+    assert untraced["correct"] is True and traced["correct"] is True, traced["checks"]
+    assert set(untraced["metrics"]) == {"train_epoch_ms", "setup_s"}
+    assert {"operator_s.setup", "ritz_s.setup", "mfu_pct.train"} <= set(traced["metrics"])
+    assert set(traced["checks"]) == set(bench.Cell(src_cell).limits)
+
+    assert _files(tmp_path / "portbench") - _files(ROOT / "portbench") == {
+        Path("configs") / f"{new}.json", Path("limits") / f"{cell}.json"}
+    for rel in _files(ROOT / "portbench"):
+        assert filecmp.cmp(ROOT / "portbench" / rel, tmp_path / "portbench" / rel,
+                           shallow=False), rel
 
 
 @pytest.mark.cuda

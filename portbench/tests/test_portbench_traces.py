@@ -1,5 +1,6 @@
-"""The trace arithmetic on a hand-made Chrome trace: busy time, device
-time under named ATen ops, the window, idle gaps by harness span."""
+"""The trace arithmetic on a hand-made Chrome trace: busy time, kernels by
+name, calls of named ATen ops, the window, idle gaps by harness span, and
+the kernels' roofline share."""
 
 from __future__ import annotations
 
@@ -39,11 +40,24 @@ def test_the_window_and_busy_time():
     assert traces.busy_seconds(EVENTS) == pytest.approx(50e-6)
 
 
-def test_device_time_under_ops_follows_the_launching_thread():
-    ops = ("aten::index_select", "aten::index_add_", "aten::index_add")
-    assert traces.device_us_under_ops(EVENTS, ops, 0, 100) == pytest.approx(30.0)
-    assert traces.device_us_under_ops(EVENTS, ("aten::mul",), 0, 100) == pytest.approx(10.0)
-    assert traces.device_us_under_ops(EVENTS, ops, 0, 65) == pytest.approx(25.0)
+CSR = "void (anonymous namespace)::spmm_csr_kernel<__nv_bfloat16, 8, 1, int>"
+SDDMM = "void (anonymous namespace)::spmm_sddmm_kernel<__nv_bfloat16, 8, 1, int>"
+PRODUCTS = EVENTS + [
+    X(CSR, "kernel", 70, 4, tid=7, correlation=5),
+    X(CSR, "kernel", 80, 6, tid=7, correlation=6),  # the transposed view's
+    X(SDDMM, "kernel", 90, 2, tid=7, correlation=7),
+    X(CSR, "kernel", 98, 4, tid=7, correlation=8),  # cut to the window: 2 µs
+    X(CSR, "kernel", 140, 4, tid=7, correlation=9),  # after the window
+    X("spmm_csr_kernel", "cpu_op", 72, 1),  # a host op of that name is no launch
+]
+
+
+def test_kernels_named_count_and_time_the_window_s_launches():
+    kernels = ("spmm_csr_kernel", "spmm_sddmm_kernel")
+    assert traces.kernels_named(PRODUCTS, kernels, 0, 100) == (4, pytest.approx(14.0))
+    assert traces.kernels_named(PRODUCTS, ("spmm_csr_kernel",), 0, 100) == (3, 12.0)
+    assert traces.kernels_named(PRODUCTS, kernels, 0, 200) == (5, pytest.approx(20.0))
+    assert traces.kernels_named(EVENTS, kernels, 0, 100) == (0, 0.0)
 
 
 def test_outermost_calls_count_each_call_once():
@@ -58,23 +72,30 @@ def test_outermost_calls_count_each_call_once():
     assert traces.outermost_calls(events, ops, 0, 200)["aten::index_select"] == 2
 
 
-def _sparse_reader_ctx(calls_per_unit):
+def _sparse_reader_ctx(launches_per_unit, events=PRODUCTS, units=1, reader="train"):
     from portbench.readers import Ctx
 
-    ctx = Ctx(kind="train", setup={}, units=1, window_s=1e-4, events=EVENTS, t0=0, t1=100,
+    ctx = Ctx(kind="train", setup={}, units=units, window_s=1e-4, events=events, t0=0, t1=100,
               counts={"flops": 1.0, "bytes": 1.0, "sparse_bytes": 1e6,
-                      "sparse_calls": calls_per_unit})
-    return bench.metric_reader("sparse_ops_roofline_pct.train")[0].read(ctx, "train")
+                      "sparse_launches": launches_per_unit})
+    return bench.metric_reader(f"sparse_ops_roofline_pct.{reader}")[0].read(ctx, reader)
 
 
-def test_the_sparse_share_is_left_out_when_the_calls_do_not_match():
-    # the trace's calls: one index_select, one index_add_ (30 µs of kernels)
-    share = _sparse_reader_ctx({"aten::index_select": 1, "aten::index_add_": 1})
-    assert share == pytest.approx(100.0 * 1e6 / 30e-6 / HBM_BYTES_PER_S)
-    # a scatter that left the listed ops, or a product more than they carry
-    assert _sparse_reader_ctx({"aten::index_select": 1, "aten::index_add_": 2}) is None
-    assert _sparse_reader_ctx({"aten::index_select": 1, "aten::index_add_": 1,
-                               "aten::index_add": 1}) is None
+def test_the_sparse_share_is_left_out_when_the_calls_do_not_match(capsys):
+    # the window's launches: three of the product kernel and one of the edge weights' gradient,
+    # 14 µs; the ATen gathers and scatters beside them are not timed
+    share = _sparse_reader_ctx(4)
+    assert share == pytest.approx(100.0 * 1e6 / 14e-6 / HBM_BYTES_PER_S)
+    assert _sparse_reader_ctx(2, units=2) == pytest.approx(100.0 * 2e6 / 14e-6 / HBM_BYTES_PER_S)
+    # a product that left the kernels, or a launch more than the products need
+    assert _sparse_reader_ctx(5) is None
+    assert "4 launches of spmm_csr_kernel or spmm_sddmm_kernel in the window, expected 5" in (
+        capsys.readouterr().err)
+    assert _sparse_reader_ctx(3) is None
+    # no kernel of the products, a trace without the card, a cell of another kind
+    assert _sparse_reader_ctx(0, events=EVENTS) is None
+    assert _sparse_reader_ctx(4, events=None) is None
+    assert _sparse_reader_ctx(4, reader="infer") is None
 
 
 def test_idle_gaps_are_named_by_the_span_that_ended_them():

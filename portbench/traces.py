@@ -5,9 +5,10 @@
 the union of kernel, copy and memset intervals; each instant charged to
 the innermost op open then), kept here so that a
 change to the program cannot move the yardstick. Added for the
-benchmark: the measured window's bounds, the device time of kernels
-launched under named ATen ops and the calls of those ops, the top device ops, and idle gaps named
-by the harness span in which the host launched the work that ended them.
+benchmark: the measured window's bounds, the launches and device time
+of kernels by name, the calls of named ATen ops, the top device ops, and
+idle gaps named by the harness span in which the host launched the work
+that ended them.
 """
 
 from __future__ import annotations
@@ -98,44 +99,11 @@ def clip(events: list[dict], t0: float, t1: float, categories=DEVICE_CATEGORIES)
     return out
 
 
-def _correlation(e: dict):
-    return (e.get("args") or {}).get("correlation")
-
-
-def device_us_under_ops(events: list[dict], ops, t0: float, t1: float) -> float:
-    """µs of device work (kernels, copies, memsets) inside ``[t0, t1]``
-    that was launched while a host op named in ``ops`` was open on the
-    launching thread (at any depth)."""
-    ops = set(ops)
-    work: dict = {}
-    for e in clip(events, t0, t1):
-        c = _correlation(e)
-        if c is not None:
-            work[c] = work.get(c, 0.0) + float(e["dur"])
-    # per thread, a sweep over op starts (0), launches (1) and op ends (2)
-    points: dict = {}
-    for e in _spans(events, ("cpu_op",)):
-        if e["name"] in ops:
-            key = (e.get("pid"), e.get("tid"))
-            a = float(e["ts"])
-            b = a + float(e.get("dur", 0.0))
-            points.setdefault(key, []).extend([(a, 0, None), (b, 2, None)])
-    for e in _spans(events, LAUNCH_CATEGORIES):
-        c = _correlation(e)
-        if c in work:
-            points.setdefault((e.get("pid"), e.get("tid")), []).append((float(e["ts"]), 1, c))
-    total = 0.0
-    for pts in points.values():
-        pts.sort(key=lambda p: (p[0], p[1]))
-        depth = 0
-        for _, kind, c in pts:
-            if kind == 0:
-                depth += 1
-            elif kind == 2:
-                depth -= 1
-            elif depth > 0:
-                total += work[c]
-    return total
+def kernels_named(events: list[dict], parts, t0: float, t1: float) -> tuple[int, float]:
+    """``(launches, µs)`` of the kernels inside ``[t0, t1]`` (cut to it as
+    ``clip`` cuts them) whose name holds one of the strings ``parts``."""
+    hits = [e for e in clip(events, t0, t1, ("kernel",)) if any(p in e["name"] for p in parts)]
+    return len(hits), sum(float(e["dur"]) for e in hits)
 
 
 def outermost_calls(events: list[dict], ops, t0: float, t1: float) -> dict[str, int]:
