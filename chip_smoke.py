@@ -31,7 +31,13 @@ total last, as ``"total"``); any failure exits non-zero:
    kernel alone and a backward no ``index_add``; each timed beside the
    plain version (once), the library's one call (cuSPARSE through
    ``torch.sparse``) and two bounds at 3.35 TB/s: its compulsory bytes
-   and its gathered rows' bytes.
+   and its gathered rows' bytes. Then GAT's heads (``attention_spmv`` →
+   ``sparse_cuda.csr_spmm_heads``) at the ogbn-products cell's shapes,
+   2,449,029 nodes, 123.7M edges, 4 heads of 128 and of 47, bfloat16,
+   against ``_attention_plain`` on the same card inputs, run in pieces of
+   whole rows (the forward) and whole sources (the gradients) so that no
+   ``[E, H, D]`` tensor exists, within the same two limits; one launch of
+   each kernel a head; one head's kernels timed beside the two bounds.
 4. serve: the flagship LanczosNet of ``configs/qm8_lanczos_net.yaml``
    at full width, weights drawn from a seeded generator, behind
    ``Predictor`` and ``MicroBatcher``, answers QM8-like requests from
@@ -395,6 +401,11 @@ CORA_SHAPE = (2708, 1433, 7)  # nodes, features, classes: the real dataset's
 SERVE_BATCH = 64
 # the CSR product kernels' main-path shapes: (nodes, edges, F)
 SPMM_SHAPES = ((10_000_000, 25_000_000, 32), (1_000_000, 2_500_000, 256))
+# GAT's heads on the CSR kernels at the ogbn-products cell's shapes: (nodes,
+# edges, heads, head widths); the plain version runs in pieces of about
+# HEADS_PLAIN_EDGES edges, so that no [E, H, D] message exists
+GAT_HEADS_SHAPE = (2_449_029, 123_718_280, 4, (128, 47))
+HEADS_PLAIN_EDGES = 2_000_000
 TOL = 1e-4  # the kernel's contract with its plain version, all six outputs
 OUTPUTS = ("alphas", "betas_full", "q", "p1", "p2", "w4")
 EPS = 1e-6
@@ -794,16 +805,147 @@ LIBRARY_ROUTES = {
 }
 
 
-def phase_spmm_kernel(dev, smi: str) -> dict:
+def row_ranges(ptr: np.ndarray, chunk: int):
+    """Consecutive ``(r0, r1)`` covering the rows of the CSR pointer
+    ``ptr``, each of about ``chunk`` edges or one row."""
+    n, r0 = len(ptr) - 1, 0
+    while r0 < n:
+        r1 = int(np.searchsorted(ptr, ptr[r0] + chunk, side="right")) - 1
+        r1 = min(n, max(r1, r0 + 1))
+        yield r0, r1
+        r0 = r1
+
+
+def heads_plain(op: SparseOp, p: torch.Tensor, x: torch.Tensor, g: torch.Tensor) -> tuple:
+    """``ops/sparse.py:_attention_plain`` on the card, its output and the
+    gradients of ``<out, g>`` in x and p, with each ``dval``'s terms'
+    magnitudes ``Σ_d |g[row_e, h, d] x[col_e, h, d]|``, in pieces of
+    about ``HEADS_PLAIN_EDGES`` edges: the forward over whole destination
+    rows, the gradients over whole sources (``col_perm``'s order), so that
+    every sum is the plain version's over all its edges."""
+    n = op.n
+    out, dx = torch.empty_like(x), torch.empty_like(x)
+    dval, terms = torch.empty_like(p), torch.empty_like(p)
+    ptr = op.row_ptr.cpu().numpy().astype(np.int64)
+    with torch.no_grad():
+        for r0, r1 in row_ranges(ptr, HEADS_PLAIN_EDGES):
+            e0, e1 = int(ptr[r0]), int(ptr[r1])
+            piece = SparseOp(row=op.row[e0:e1] - r0, col=op.col[e0:e1], val=op.val[e0:e1],
+                             n=r1 - r0, rows_sorted=True)
+            out[r0:r1] = sparse_mod._attention_plain(piece, p[e0:e1], x)
+    perm = op.col_perm.long()
+    cptr = csr_row_ptr(op.col.index_select(0, op.col_perm), n).cpu().numpy().astype(np.int64)
+    for c0, c1 in row_ranges(cptr, HEADS_PLAIN_EDGES):
+        ids = perm[int(cptr[c0]):int(cptr[c1])]
+        row, col = op.row.index_select(0, ids), op.col.index_select(0, ids)
+        piece = SparseOp(row=row, col=col - c0, val=op.val.index_select(0, ids), n=n)
+        xs = x[c0:c1].detach().requires_grad_()
+        ps = p.index_select(0, ids).requires_grad_()
+        sparse_mod._attention_plain(piece, ps, xs).backward(g)
+        dx[c0:c1], dval[ids] = xs.grad, ps.grad
+        terms[ids] = (g.index_select(0, row).float() * x.index_select(0, col).float()
+                      ).abs().sum(-1)
+        del xs, ps, piece
+    return out, dx, dval, terms
+
+
+def heads_check(n: int, e: int, heads: int, d: int, dev) -> dict:
+    """GAT's weighted sum ``attention_spmv`` (``sparse_cuda.csr_spmm_heads``:
+    one launch of each kernel a head) at one head width of the cell, on a
+    random operator of ``spmm_case`` with attention weights ``p [E, H]``
+    (0 on dead edges), against its plain version on the same card inputs
+    (``heads_plain``: the forward and ``dx`` within one bfloat16 ulp,
+    ``dval`` within 2^-7 of its terms' magnitudes); the launches of one
+    call; one head's kernels timed beside their two bounds, and the
+    whole call forward and forward with backward."""
+    op, x = spmm_case(n, e, heads * d, 0, dev)
+    x = x.reshape(n, heads, d)
+    gen = torch.Generator(dev).manual_seed(1)
+    g = torch.randn(n, heads, d, generator=gen, device=dev).to(x.dtype)
+    p = torch.rand(e, heads, generator=gen, device=dev) * (op.val != 0)[:, None]
+    out, fails = {"shape": f"N={n} E={e} H={heads} D={d} bfloat16"}, []
+
+    counts = [c.count for c in CSR_COUNTERS]
+    pr, xr = p.detach().requires_grad_(), x.detach().requires_grad_()
+    y = sparse_mod.attention_spmv(op, pr, xr)
+    y.backward(g)
+    got = (y.detach(), xr.grad, pr.grad)
+    del y, pr, xr
+    torch.cuda.synchronize()
+    out["launches_per_call"] = dict(zip(("spmm", "spmm_t", "sddmm"), (
+        c.count - before for c, before in zip(CSR_COUNTERS, counts))))
+    if out["launches_per_call"] != {"spmm": heads, "spmm_t": heads, "sddmm": heads}:
+        fails.append(f"launches of one call: {out['launches_per_call']}, not {heads} each")
+    t0 = time.perf_counter()
+    want = heads_plain(op, p, x, g)
+    torch.cuda.synchronize()
+    out["plain_pieces_s"] = time.perf_counter() - t0
+    for name, a, b in zip(("out", "dx"), got, want):
+        err = (a.float() - b.float()).abs()
+        out[f"{name}_max_abs_err"] = float(err.max())
+        if not bool((err <= 2**-7 * b.float().abs() + 1e-5).all()):
+            fails.append(f"{name} beyond one bfloat16 ulp of the plain version's")
+        del err
+    derr = (got[2] - want[2]).abs()
+    out["dval_max_abs_err"] = float(derr.max())
+    if not bool((derr <= 2**-7 * want[3] + 1e-6).all()):
+        fails.append("dval beyond 2^-7 of its terms' magnitudes")
+    del got, want, derr
+    torch.cuda.empty_cache()
+
+    xh, gh = x.permute(1, 0, 2).contiguous(), g.permute(1, 0, 2).contiguous()
+    w = p.to(x.dtype).to(torch.float32).t().contiguous()
+    ptr_t = sparse_cuda.csr_transpose(op.row, op.col, w, op.col_perm, n)
+    one_head = {
+        "spmm": lambda: sparse_cuda._launch_spmm(op.row_ptr, op.col, w[0], xh[0],
+                                                 sparse_cuda.spmm_launches),
+        "spmm_t": lambda: sparse_cuda._launch_spmm(ptr_t[0], ptr_t[1], ptr_t[2][0], gh[0],
+                                                   sparse_cuda.spmm_t_launches),
+        "sddmm": lambda: sparse_cuda._launch_sddmm(op.row_ptr, op.col, gh[0], xh[0]),
+    }
+    nbytes = spmm_bytes(n, n, e, d, x.element_size())
+    for name, kernel in one_head.items():
+        k_ms = cuda_ms(kernel, 10, 2)
+        out[name] = {"kernel_ms_a_head": k_ms}
+        for way in ("compulsory", "gathered"):
+            bound = nbytes[way][name] / HBM_BYTES_PER_S * 1e3
+            out[name].update({f"bound_ms_{way}": bound, f"bound_bytes_{way}": nbytes[way][name],
+                              f"share_of_{way}_bound_pct": 100.0 * bound / k_ms})
+    del xh, gh, w, ptr_t, one_head
+    pr, xr = p.detach().requires_grad_(), x.detach().requires_grad_()
+    out["call_forward_ms"] = cuda_ms(lambda: sparse_mod.attention_spmv(op, p, x), 5, 1)
+    out["call_forward_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        sparse_mod.attention_spmv(op, pr, xr), (pr, xr), g), 3, 1)
+    fwd = device_kernels(lambda: sparse_mod.attention_spmv(op, p, x))
+    bwd = device_kernels(lambda: torch.autograd.grad(
+        sparse_mod.attention_spmv(op, pr, xr), (pr, xr), g))
+    out["forward_kernels"], out["forward_backward_kernels"] = fwd, bwd
+    if sum(c for k, c in fwd.items() if "spmm_csr_kernel" in k) != heads:
+        fails.append(f"a forward launched {fwd}, not the product kernel once a head")
+    if any("indexFunc" in k or "index_add" in k for k in bwd):
+        fails.append(f"the backward ran an index_add: {bwd}")
+    if fails:
+        raise SmokeFailure(f"csr_spmm_heads at {out['shape']}: " + "; ".join(fails))
+    return out
+
+
+def phase_spmm_kernel(dev, smi: str) -> tuple[dict, dict]:
     """The CSR product kernels at the main path's two shapes: the 10M
     LanczosNet's (10M nodes, 25M edges, F=32, 64-byte rows) and the wide
-    GCN's (1M, 2.5M, F=256, 512-byte rows), both bfloat16."""
-    res = {}
+    GCN's (1M, 2.5M, F=256, 512-byte rows), both bfloat16; then GAT's
+    heads at the ogbn-products cell's (2.45M nodes, 123.7M edges, 4
+    heads of 128 and of 47: 256- and 94-byte rows). → (by F, by D)."""
+    res, heads = {}, {}
     for n, e, f in SPMM_SHAPES:
         res[f] = spmm_shape_check(n, e, f, dev)
         emit("spmm_kernel", **res[f], nvidia_smi=smi)
         torch.cuda.empty_cache()
-    return res
+    n, e, h, widths = GAT_HEADS_SHAPE
+    for d in widths:
+        heads[d] = heads_check(n, e, h, d, dev)
+        emit("spmm_heads", **heads[d], nvidia_smi=smi)
+        torch.cuda.empty_cache()
+    return res, heads
 
 
 def plain_reference(pred: Predictor, chunk: list) -> np.ndarray:
@@ -3619,7 +3761,7 @@ def main() -> None:
     timed("build", phase_build)
     barrier = timed("barrier", phase_barrier, dev)
     kern = timed("kernel", phase_kernel, dev, barrier["small_launch_ms"])
-    spmm = timed("spmm_kernel", phase_spmm_kernel, dev, smi)
+    spmm, spmm_heads = timed("spmm_kernel", phase_spmm_kernel, dev, smi)
     serve_launches = timed("serve", phase_serve, dev, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as runs:
         runs = Path(runs)
@@ -3720,6 +3862,9 @@ def main() -> None:
         "by_shape": {f: {**spmm[f][name], "max_abs_err": spmm[f][err],
                          "launches_per_call": spmm[f]["launches_per_call"][name]}
                      for f in spmm},
+        "by_head_width": {d: {**spmm_heads[d][name], "max_abs_err": spmm_heads[d][err],
+                              "launches_per_call": spmm_heads[d]["launches_per_call"][name]}
+                          for d in spmm_heads},
         "library_ms": {f: spmm[f][name]["library_ms"] for f in spmm},
         "library": LIBRARY_ROUTES[name],
     } for name, err, launches in zip(("spmm", "spmm_t", "sddmm"),

@@ -8,6 +8,8 @@ node is real, so there is no mask. The nine families:
 - ``SparseChebyNet``: the Chebyshev recurrence ``T_k = 2 S T_{k-1} − T_{k-2}``;
 - ``SparseGAT``: multi-head attention, softmax over each node's
   incoming edges and an implicit self-edge (``ops/sparse.py:gat_attention``);
+  with ``skip``, PyG's ``GATConv`` stack with skip connections (the
+  published ogbn-products GAT);
 - ``SparseDCNN``: hop features of the row-stochastic operator;
 - ``SparseGraphSAGE``: the exact neighbour mean, self concat, L2 norm;
 - ``SparseMPNN``: linear messages through S and a GRU shared over steps;
@@ -97,16 +99,18 @@ def replaying(fn, generator: Optional[torch.Generator]):
 
 
 class SparseNodeModel(nn.Module):
-    """What the nine share: the activation dtype, dropout, the head, the
+    """What the nine share: the activation dtype, dropout, the head (left
+    out with ``head=False``, where the last layer gives the logits), the
     per-layer checkpointing and the initialization."""
 
     supports_remat_layers = False
 
-    def __init__(self, width: int, num_class: int, dropout: float, dtype):
+    def __init__(self, width: int, num_class: int, dropout: float, dtype, head: bool = True):
         super().__init__()
         self.dtype = compute_dtype(dtype)
         self.drop = Dropout(dropout)
-        self.head = Dense(width, num_class, act_dtype=self.dtype)
+        if head:
+            self.head = Dense(width, num_class, act_dtype=self.dtype)
         self.remat_layers = False
 
     def set_remat_layers(self, on: bool) -> None:
@@ -183,22 +187,47 @@ class SparseChebyNet(SparseNodeModel):
 
 
 class SparseGAT(SparseNodeModel):
+    """GAT (Veličković et al., ICLR 2018, arXiv:1710.10903): layer i maps
+    ``h`` to ``hp = W_i h`` (``proj.<i>``, no bias) cut into heads, each
+    head's softmax over a node's live in-edges and a self-edge of
+    ``leaky_relu(a_dst·hp_i + a_src·hp_j)`` (``att_dst.<i>``,
+    ``att_src.<i>``), the weighted sum of ``hp`` concatenated over the
+    heads (``gat_attention``, traced as the span ``model.attention``),
+    then ELU and dropout; the ``head`` gives the logits. The projections
+    (and skips) are traced as the span ``model.dense``.
+
+    ``skip`` makes it PyG's ``GATConv`` stack with skip connections, the
+    published ogbn-products GAT: each layer a ``GATConv`` (a bias after
+    the aggregation, ``bias.<i>``) plus a skip ``Dense(in → out)`` with
+    bias (``skip.<i>``), added before the ELU, and in place of the
+    ``head`` a last such layer of ``num_head`` heads of ``num_class``,
+    averaged, whose output is the logits. Without it the model and its
+    parameter names are those of the JAX package's ``SparseGAT``."""
+
     def __init__(self, in_dim: int, hidden_dim: Sequence[int], num_class: int,
                  num_head: int = 4, negative_slope: float = 0.2, dropout: float = 0.5,
-                 dtype=None):
-        head_dims = [-(-d // int(num_head)) for d in hidden_dim]
-        super().__init__(int(num_head) * head_dims[-1], num_class, dropout, dtype)
-        self.num_head = int(num_head)
+                 dtype=None, skip: bool = False):
+        num_head = int(num_head)
+        head_dims = [-(-d // num_head) for d in hidden_dim]
+        super().__init__(num_head * head_dims[-1], num_class, dropout, dtype, head=not skip)
+        if skip:
+            head_dims.append(int(num_class))
         self.negative_slope = negative_slope
         self.proj = nn.ModuleList()
         self.att_src = nn.ParameterList()
         self.att_dst = nn.ParameterList()
+        self.bias = nn.ParameterList() if skip else None
+        self.skip = nn.ModuleList() if skip else None
         width = in_dim
-        for hd in head_dims:
-            self.proj.append(Dense(width, self.num_head * hd, bias=False, act_dtype=self.dtype))
-            self.att_src.append(nn.Parameter(torch.zeros(self.num_head, hd)))
-            self.att_dst.append(nn.Parameter(torch.zeros(self.num_head, hd)))
-            width = self.num_head * hd
+        for li, hd in enumerate(head_dims):
+            out = hd if skip and li == len(head_dims) - 1 else num_head * hd
+            self.proj.append(Dense(width, num_head * hd, bias=False, act_dtype=self.dtype))
+            self.att_src.append(nn.Parameter(torch.zeros(num_head, hd)))
+            self.att_dst.append(nn.Parameter(torch.zeros(num_head, hd)))
+            if skip:
+                self.bias.append(nn.Parameter(torch.zeros(out)))
+                self.skip.append(Dense(width, out, act_dtype=self.dtype))
+            width = num_head * hd
 
     def init_extra(self, generator: torch.Generator) -> None:
         for p in [*self.att_src, *self.att_dst]:
@@ -207,12 +236,27 @@ class SparseGAT(SparseNodeModel):
     def forward(self, x: torch.Tensor, op: SparseOp) -> torch.Tensor:
         h = x.to(self.dtype)
         n = h.shape[0]
-        for proj, a_src, a_dst in zip(self.proj, self.att_src, self.att_dst):
-            hp = proj(h).reshape(n, self.num_head, -1)  # [N, H, D]
+        last = len(self.proj) - 1
+        for li, (proj, a_src, a_dst) in enumerate(zip(self.proj, self.att_src, self.att_dst)):
+            with span("model.dense"):
+                hp = proj(h).reshape(n, a_src.shape[0], -1)  # [N, H, D]
             s_src = (hp * a_src.to(self.dtype)).sum(-1)  # [N, H]
             s_dst = (hp * a_dst.to(self.dtype)).sum(-1)
-            msg = gat_attention(op, s_dst, s_src, hp, self.negative_slope)
-            h = self.drop(F.elu(msg.reshape(n, -1)))
+            with span("model.attention"):
+                msg = gat_attention(op, s_dst, s_src, hp, self.negative_slope)
+            if self.skip is None:
+                h = self.drop(F.elu(msg.reshape(n, -1)))
+                continue
+            out = msg.mean(1) if li == last else msg.reshape(n, -1)
+            # the bias added before the skip is made, as in ``out + bias +
+            # skip``: autograd takes the later node first, so the skip's
+            # backward runs before the attention's, not beside its peak
+            out = out + self.bias[li].to(self.dtype)
+            with span("model.dense"):
+                out = out + self.skip[li](h)
+            if li == last:
+                return out
+            h = self.drop(F.elu(out))
         return self.head(h)
 
 
@@ -425,7 +469,8 @@ def build_sparse_model(mcfg: dict, in_dim: int, num_class: int) -> SparseNodeMod
     if name == "ChebyNet":
         return SparseChebyNet(**common, poly_order=int(mcfg.get("poly_order", 3)))
     if name == "GAT":
-        return SparseGAT(**common, num_head=int(mcfg.get("num_head", 4)))
+        return SparseGAT(**common, num_head=int(mcfg.get("num_head", 4)),
+                         skip=bool(mcfg.get("skip", False)))
     if name == "DCNN":
         return SparseDCNN(**common, max_hop=int(mcfg.get("max_hop", 3)))
     if name == "GraphSAGE":

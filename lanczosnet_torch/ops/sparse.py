@@ -14,8 +14,12 @@ destination-major rows ``SparseOp.row_ptr``, its backward the same
 kernel over the transposed view; in ring form one launch a hop, over
 that hop's slice (``RingOp.row_ptr``). On a CPU tensor it is the plain
 version ``_spmv_plain``, the gather, edge scale and segment sum below,
-which the kernel matches bit for bit. Every other op here runs on
-ATen's gathers and segment sums on either device.
+which the kernel matches bit for bit. GAT's weighted sum
+``attention_spmv`` takes the same kernel on the card, one launch a head
+(``sparse_cuda.csr_spmm_heads``), its plain version
+``_attention_plain`` on the CPU. A CUDA tensor the kernels do not take
+(a dtype other than float32 and bfloat16) raises. Every other op here
+runs on ATen's gathers and segment sums on either device.
 
 Dtypes: a 16-bit message is widened to float32 before every segment
 sum and narrowed after it (``_segsum``), so no ``index_add_`` runs in
@@ -65,7 +69,7 @@ import torch.nn.functional as F
 from lanczosnet_torch.ops.eigh import eigh_dispatch
 from lanczosnet_torch.ops.lanczos import lanczos_tridiag_matvec, tridiag_matrix
 from lanczosnet_torch.ops.precision import f32_matmul
-from lanczosnet_torch.ops.sparse_cuda import csr_row_ptr, csr_spmm
+from lanczosnet_torch.ops.sparse_cuda import csr_row_ptr, csr_spmm, csr_spmm_heads
 from lanczosnet_torch.parallel.comm import Comm, all_gather_rows, pmax, psum, ring_hop
 from lanczosnet_torch.utils.profiling import span
 
@@ -375,23 +379,29 @@ def _spmv_plain(op: SparseOp, x: torch.Tensor) -> torch.Tensor:
     return _edge_sum(op, _segsum(_edge_scale(op.val.to(x.dtype), xg), op.row, op.n))
 
 
+def _card_row_ptr(op: SparseOp, what: str) -> torch.Tensor:
+    """``op.row_ptr``, which the card's kernels need; raises without it."""
+    if op.row_ptr is None:
+        raise ValueError(f"{what} on the card needs the operator's row_ptr: build it with "
+                         "sparse_op_from_arrays or parallel/mesh.py:sparse_op_piece, or "
+                         "pass row_ptr=csr_row_ptr(row, n) for sorted rows")
+    return op.row_ptr
+
+
 def spmv(op: AnyOp, x: torch.Tensor) -> torch.Tensor:
     """``S @ x`` for ``x [N]`` or ``[N, F]`` (this rank's block when node-
     sharded), in x's dtype (the weights are cast to it); traced as the
     span ``sparse.spmv``. A CUDA tensor goes to the CSR kernel
-    (``sparse_cuda.csr_spmm``, which needs ``op.row_ptr``), any other to
-    ``_spmv_plain``."""
+    (``sparse_cuda.csr_spmm``, which needs ``op.row_ptr`` and raises on a
+    dtype it does not take), any other to ``_spmv_plain``."""
     with span("sparse.spmv"):
         if isinstance(op, RingOp):
             return ring_spmv(op, x)
         if x.device.type != "cuda":
             return _spmv_plain(op, x)
-        if op.row_ptr is None:
-            raise ValueError("spmv on the card needs the operator's row_ptr: build it with "
-                             "sparse_op_from_arrays or parallel/mesh.py:sparse_op_piece, or "
-                             "pass row_ptr=csr_row_ptr(row, n) for sorted rows")
+        row_ptr = _card_row_ptr(op, "spmv")
         xg = gather_nodes(op, x)
-        return _edge_sum(op, csr_spmm(op.row_ptr, op.row, op.col, op.val, op.col_perm, xg))
+        return _edge_sum(op, csr_spmm(row_ptr, op.row, op.col, op.val, op.col_perm, xg))
 
 
 def live_degree(op: AnyOp) -> torch.Tensor:
@@ -531,10 +541,30 @@ def segment_softmax_coo(
     return p, torch.clamp_min(denom, eps), p_self
 
 
+def _attention_plain(op: SparseOp, p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``attention_spmv``: the gather, the edge scale
+    in x's dtype and the float32 segment sum."""
+    return _edge_sum(op, _segsum(p[..., None].to(x.dtype) * edge_gather(op, x), op.row, op.n))
+
+
 def attention_spmv(op: SparseOp, p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``Σ_{e: row=i} p_e · x[col_e]``: per-edge weights ``p [E, ...]``
-    against ``x [N, ..., F]``."""
-    return _edge_sum(op, _segsum(p[..., None].to(x.dtype) * edge_gather(op, x), op.row, op.n))
+    against ``x [N, ..., F]``. On the card, heads ``p [E, H]`` and ``x
+    [N, H, D]`` (this rank's block when node-sharded) take the CSR kernel
+    a head (``sparse_cuda.csr_spmm_heads`` on x laid out head-major,
+    ``p``'s columns its weights), with no ``[E, H, D]`` tensor, and any
+    other shape raises; a CPU tensor takes ``_attention_plain``, which the
+    kernel matches bit for bit."""
+    if x.device.type != "cuda":
+        return _attention_plain(op, p, x)
+    if p.dim() != 2 or x.dim() != 3:
+        raise ValueError(f"attention_spmv on the card takes p [E, H] and x [N, H, D], got "
+                         f"{tuple(p.shape)} and {tuple(x.shape)}")
+    row_ptr = _card_row_ptr(op, "attention_spmv")
+    xg = gather_nodes(op, x).permute(1, 0, 2)
+    w = p.to(x.dtype).to(torch.float32).t()
+    out = csr_spmm_heads(row_ptr, op.row, op.col, w, op.col_perm, xg)
+    return _edge_sum(op, out.permute(1, 0, 2))
 
 
 def gat_attention(

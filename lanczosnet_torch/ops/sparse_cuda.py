@@ -8,10 +8,12 @@ backward the same kernel over the source-major view for ``dx = Sᵀ g``
 (``csr_transpose``: ``col_ptr``, ``row[col_perm]`` and ``val[col_perm]``,
 built on the device inside the backward and dropped after it), and,
 only where the weights require a gradient (AdaLanczosNet's learned
-operator), ``spmm_sddmm_kernel`` for ``dval_e = Σ_f g[row_e, f] ·
-x[col_e, f]``. The plain version is ``ops/sparse.py:_spmv_plain``, which
-``spmv`` runs for a CPU tensor; a CUDA tensor launches the kernels or
-raises.
+operator, GAT's attention weights), ``spmm_sddmm_kernel`` for ``dval_e
+= Σ_f g[row_e, f] · x[col_e, f]``. ``_CsrSpmm`` launches them for H
+products over one CSR (heads); ``csr_spmm``'s product is one head. The
+plain versions are ``ops/sparse.py:_spmv_plain`` and ``_attention_plain``,
+which ``spmv`` and ``attention_spmv`` run for a CPU tensor; a CUDA
+tensor launches the kernels or raises.
 
 Numerics are the plain version's: each edge's message is the weight
 cast to x's dtype times x's element, rounded to x's dtype, summed in
@@ -23,6 +25,12 @@ the card's ``index_add`` atomics added in a changing order.
 ``LANCZOSNET_BF16_SCATTER``, the opt-in to a 16-bit sorted scatter, does
 not reach this backward: it accumulates in float32 always, which is the
 plain version's default.
+
+GAT's attention (``ops/sparse.py:attention_spmv``) calls
+``csr_spmm_heads``: H products over one CSR, each with its own edge
+weights (a head's attention weights), on a head-major ``x [H, N, D]``,
+one launch of each kernel a head; its backward builds the transposed
+view once for the H heads. No ``[E, H, D]`` tensor exists.
 
 The launch shape comes from the row's width alone (``spmm_plan``): one
 algorithm whose parameters the shape sets, with no knob. Each kernel
@@ -98,11 +106,12 @@ def csr_transpose(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
                   col_perm: Optional[torch.Tensor], n_src: int
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The source-major view of the edges → (``col_ptr [n_src+1]`` int32,
-    ``row[perm]``, ``val[perm]``), ``perm`` being ``col_perm`` or, without
-    one, the stable sort of ``col`` (edge order within a source)."""
+    ``row[perm]``, ``val[..., perm]``), ``perm`` being ``col_perm`` or,
+    without one, the stable sort of ``col`` (edge order within a source);
+    ``val`` is ``[E]`` or one row of weights a head, ``[H, E]``."""
     perm = col_perm if col_perm is not None else torch.argsort(col, stable=True)
     col_ptr = csr_row_ptr(col.index_select(0, perm), n_src)
-    return col_ptr, row.index_select(0, perm), val.index_select(0, perm)
+    return col_ptr, row.index_select(0, perm), val.index_select(val.dim() - 1, perm)
 
 
 @functools.cache
@@ -143,11 +152,14 @@ def _as_rows(t: torch.Tensor) -> torch.Tensor:
     return (t.unsqueeze(1) if t.dim() == 1 else t).contiguous()
 
 
-def _launch_spmm(ptr, idx, val, x: torch.Tensor, counter: LaunchCounter) -> torch.Tensor:
+def _launch_spmm(ptr, idx, val, x: torch.Tensor, counter: LaunchCounter,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[ptr.numel() - 1, f]`` in x's dtype: the kernel over the CSR
-    (``ptr``, ``idx``, ``val``) against ``x [*, f]``."""
+    (``ptr``, ``idx``, ``val``) against ``x [*, f]``, into ``out`` where
+    given (contiguous)."""
     n_out = ptr.numel() - 1
-    out = torch.empty((n_out, x.shape[1]), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((n_out, x.shape[1]), dtype=x.dtype, device=x.device)
     plan = _plan_for(x, out)
     _check(_lib().spmm_csr_launch(
         ptr.data_ptr(), idx.data_ptr(), val.data_ptr(), x.data_ptr(), out.data_ptr(), n_out,
@@ -157,10 +169,13 @@ def _launch_spmm(ptr, idx, val, x: torch.Tensor, counter: LaunchCounter) -> torc
     return out
 
 
-def _launch_sddmm(ptr, col, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _launch_sddmm(ptr, col, g: torch.Tensor, x: torch.Tensor,
+                  dval: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``dval [E]`` float32: per edge, g's destination row against x's
-    source row, summed in float32 and rounded to their dtype."""
-    dval = torch.empty(col.shape[0], dtype=torch.float32, device=x.device)
+    source row, summed in float32 and rounded to their dtype; into
+    ``dval`` where given (contiguous)."""
+    if dval is None:
+        dval = torch.empty(col.shape[0], dtype=torch.float32, device=x.device)
     plan = _plan_for(g, x)
     _check(_lib().spmm_sddmm_launch(
         ptr.data_ptr(), col.data_ptr(), g.data_ptr(), x.data_ptr(), dval.data_ptr(),
@@ -172,16 +187,23 @@ def _launch_sddmm(ptr, col, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class _CsrSpmm(torch.autograd.Function):
-    """``S x`` of the CSR (``row_ptr``, ``col``, ``val``), x ``[N_src, f]``
-    → ``[n, f]``; the backward runs the kernel over the transposed view
-    for x and, where ``val`` requires a gradient, the sddmm kernel."""
+    """Per head h, ``S_h x[h]``: the CSR (``row_ptr``, ``col``) weighted by
+    ``val[h]``, x ``[H, N_src, f]`` → ``[H, n, f]``, one launch a head (a
+    plain product is one head); the backward builds the transposed view
+    once for every head (``val``'s rows gathered together) and launches
+    the kernel over it a head, and, where ``val`` requires a gradient, the
+    sddmm kernel a head."""
 
     @staticmethod
     def forward(ctx, x, val, row_ptr, row, col, col_perm):
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, val, row_ptr, row, col,
                               col_perm)
-        ctx.n_src = x.shape[0]
-        return _launch_spmm(row_ptr, col, val, x, spmm_launches)
+        ctx.n_src = x.shape[1]
+        out = torch.empty((x.shape[0], row_ptr.numel() - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+        for h in range(x.shape[0]):
+            _launch_spmm(row_ptr, col, val[h], x[h], spmm_launches, out[h])
+        return out
 
     @staticmethod
     @once_differentiable
@@ -191,11 +213,49 @@ class _CsrSpmm(torch.autograd.Function):
         dx = dval = None
         if ctx.needs_input_grad[0]:
             col_ptr, row_t, val_t = csr_transpose(row, col, val, col_perm, ctx.n_src)
-            dx = _launch_spmm(col_ptr, row_t, val_t, g, spmm_t_launches)
+            dx = g.new_empty((g.shape[0], ctx.n_src, g.shape[2]))
+            for h in range(g.shape[0]):
+                _launch_spmm(col_ptr, row_t, val_t[h], g[h], spmm_t_launches, dx[h])
             del col_ptr, row_t, val_t
         if ctx.needs_input_grad[1]:
-            dval = _launch_sddmm(row_ptr, col, g, x)
+            dval = torch.empty_like(val)
+            for h in range(g.shape[0]):
+                _launch_sddmm(row_ptr, col, g[h], x[h], dval[h])
         return dx, dval, None, None, None, None
+
+
+def _check_operands(what: str, row_ptr, row, col, val, col_perm, x: torch.Tensor) -> None:
+    """Raise on operands the kernels do not take: x off the card or of
+    another dtype than float32 and bfloat16, weights not float32, indices
+    not int32, anything on another device than x."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on the card; x is on {x.device} (the plain version "
+                         "is ops/sparse.py:_spmv_plain)")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"{what} takes float32 or bfloat16 x, got {x.dtype}")
+    if val.dtype != torch.float32:
+        raise ValueError(f"{what} takes float32 weights, got {val.dtype}")
+    for name, t in (("row_ptr", row_ptr), ("row", row), ("col", col), ("col_perm", col_perm)):
+        if t is not None and t.dtype != torch.int32:
+            raise ValueError(f"{what} takes int32 {name}, got {t.dtype}")
+    for t in (row_ptr, row, col, val, col_perm):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{what}: operator on {t.device}, x on {x.device}")
+
+
+def csr_spmm_heads(row_ptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+                   val: torch.Tensor, col_perm: Optional[torch.Tensor], x: torch.Tensor
+                   ) -> torch.Tensor:
+    """Per head h, ``S_h x[h]`` on the card, ``S_h`` the CSR of ``csr_spmm``
+    with the weights ``val [H, E]`` float32, for ``x [H, N_src, D]``
+    (float32 or bfloat16; each head's rows contiguous) → ``[H, n, D]`` in
+    x's dtype; differentiable in ``x`` and ``val``. Raises on what the
+    kernels do not take."""
+    _check_operands("csr_spmm_heads", row_ptr, row, col, val, col_perm, x)
+    if x.dim() != 3 or val.dim() != 2 or val.shape[0] != x.shape[0] or x.shape[2] == 0:
+        raise ValueError(f"csr_spmm_heads takes x [H, N, D] and val [H, E], got "
+                         f"{tuple(x.shape)} and {tuple(val.shape)}")
+    return _CsrSpmm.apply(x.contiguous(), val.contiguous(), row_ptr, row, col, col_perm)
 
 
 def csr_spmm(row_ptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
@@ -206,22 +266,13 @@ def csr_spmm(row_ptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor, val: t
     ``row_ptr`` its ``csr_row_ptr``; ``col_perm`` sorts ``col`` (None:
     stable-sorted in the backward). Raises on what the kernels do not
     take."""
-    if x.device.type != "cuda":
-        raise ValueError(f"csr_spmm runs on the card; x is on {x.device} (the plain version "
-                         "is ops/sparse.py:_spmv_plain)")
-    if x.dtype not in DTYPES:
-        raise ValueError(f"csr_spmm takes float32 or bfloat16 x, got {x.dtype}")
+    _check_operands("csr_spmm", row_ptr, row, col, val, col_perm, x)
     if x.dim() not in (1, 2):
         raise ValueError(f"csr_spmm takes x [N] or [N, F], got {tuple(x.shape)}")
-    if val.dtype != torch.float32:
-        raise ValueError(f"csr_spmm takes float32 weights, got {val.dtype}")
-    for name, t in (("row_ptr", row_ptr), ("row", row), ("col", col), ("col_perm", col_perm)):
-        if t is not None and t.dtype != torch.int32:
-            raise ValueError(f"csr_spmm takes int32 {name}, got {t.dtype}")
-    for t in (row_ptr, row, col, val, col_perm):
-        if t is not None and t.device != x.device:
-            raise ValueError(f"csr_spmm: operator on {t.device}, x on {x.device}")
     if x.dim() == 2 and x.shape[1] == 0:
         return x.new_zeros((row_ptr.numel() - 1, 0))
-    out = _CsrSpmm.apply(_as_rows(x), val.contiguous(), row_ptr, row, col, col_perm)
+    # one head: views in and out, whose backward is a view too (indexing's
+    # would copy the gradient into a zeroed tensor)
+    out = _CsrSpmm.apply(_as_rows(x).unsqueeze(0), val.contiguous().unsqueeze(0), row_ptr, row,
+                         col, col_perm).squeeze(0)
     return out.squeeze(1) if x.dim() == 1 else out

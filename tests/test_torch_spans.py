@@ -52,8 +52,9 @@ def config(save_dir, name: str, remat=None) -> dict:
             "model": model, "train": train, "test": {"test_model": None}}
 
 
-def runner_and_step(save_dir, name: str, remat=None):
+def runner_and_step(save_dir, name: str, remat=None, **model_keys):
     cfg = config(save_dir, name, remat)
+    cfg["model"].update(model_keys)
     runner = SparseCitationRunner(cfg, "cpu")
     optimizer, scheduler, clip = build_optimizer(runner.model.parameters(), cfg["train"], 1)
     return runner, runner.make_train_step(optimizer, scheduler, clip)
@@ -76,10 +77,10 @@ def test_off_a_span_is_one_shared_null_context_and_calls_no_profiler_op(tmp_path
             profiling.span("model.dense")
 
 
-def traced_epoch(tmp_path, name: str, remat):
+def traced_epoch(tmp_path, name: str, remat, **model_keys):
     """One epoch after a warm one, under the profiler → (runner, events,
     t0, t1)."""
-    runner, step = runner_and_step(tmp_path, name, remat)
+    runner, step = runner_and_step(tmp_path, name, remat, **model_keys)
     step()
     runner.accuracy("val")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
@@ -93,9 +94,10 @@ def traced_epoch(tmp_path, name: str, remat):
     return runner, events, *traces.window(events, "epoch")
 
 
-def charged(events: list, ops: list, t0: float, t1: float) -> dict:
+def charged(events: list, ops: list, t0: float, t1: float, names=spans.SPAN_NAMES) -> dict:
     """The charging rule on ``ops`` (host ops of the trace), each given a
-    1 µs kernel launched at its middle → ``{span: ops charged}``."""
+    1 µs kernel launched at its middle → ``{span: ops charged}`` over the
+    spans ``names``."""
     extra = []
     for i, e in enumerate(ops):
         c = f"stand-in-{i}"
@@ -104,7 +106,7 @@ def charged(events: list, ops: list, t0: float, t1: float) -> dict:
                    "dur": 0.0, "pid": e["pid"], "tid": e["tid"], "args": {"correlation": c}},
                   {"ph": "X", "cat": "kernel", "name": "k", "ts": mid, "dur": 1.0, "pid": 0,
                    "tid": 7, "args": {"correlation": c}}]
-    got = spans.device_us_by_span(events + extra, spans.SPAN_NAMES, t0, t1)
+    got = spans.device_us_by_span(events + extra, names, t0, t1)
     return {k: round(v) for k, v in got.items()}
 
 
@@ -151,6 +153,28 @@ def test_spans_cover_the_sparse_dense_and_spectral_work_of_an_epoch(tmp_path, na
                    if e.get("cat") == "user_annotation" and e.get("name") == "model.dense"]
     assert any(not any(a <= float(e["ts"]) <= b for a, b in dense_spans)
                for e in products["model.dense"])
+
+
+def test_gat_spans_hold_its_projections_skips_and_attention(tmp_path):
+    """GAT with ``skip`` (the published ogbn-products stack, no head): one
+    ``model.attention`` span a layer and forward, every sparse op of the
+    epoch, forward and backward, charged to it, and every matrix product
+    (the projections, the skips, their backward) to ``model.dense``."""
+    runner, events, t0, t1 = traced_epoch(tmp_path, "GAT", None, skip=True, num_head=2)
+    names = ("model.attention", "model.dense")
+    assert spans.span_calls(events, "model.attention", t0, t1) == 3 * 2
+    assert spans.span_calls(events, "model.dense", t0, t1) == 3 * 2 * 2
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"
+           and t0 <= float(e["ts"]) <= t1]
+    sparse = [e for e in ops if e["name"] in SPARSE_OPS]
+    products = [e for e in ops if e["name"] in PRODUCTS]
+    assert charged(events, sparse, t0, t1, names) == {
+        "model.attention": len(sparse), "model.dense": 0}
+    assert charged(events, products, t0, t1, names) == {
+        "model.attention": 0, "model.dense": len(products)}
+    dense_spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("cat") == "user_annotation" and e.get("name") == "model.dense"]
+    assert any(not any(a <= float(e["ts"]) <= b for a, b in dense_spans) for e in products)
 
 
 def adam_steps(tmp_path, remat, traced: bool):

@@ -249,3 +249,44 @@ def test_ring_spmv_on_the_cpu_is_the_plain_version(monkeypatch, dtype):
     want.float().sum().backward()
     assert torch.equal(got, want) and torch.equal(xr.grad, xp.grad)
     assert [c.count for c in counters] == before
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, True), (torch.bfloat16, True),
+                                         (torch.float16, False), (torch.float64, False)])
+def test_the_card_route_by_dtype(dtype, route):
+    """On the card a product and GAT's weighted sum take the kernels for
+    float32 and bfloat16 (here they go on to refuse the CPU operator) and
+    raise for float16 and float64, naming the dtypes they take, before
+    any launch; a product without ``row_ptr`` raises first."""
+    from types import SimpleNamespace
+
+    def on_card(dims):
+        """A stand-in for a CUDA tensor: what the routes read before a launch."""
+        t = SimpleNamespace(device=torch.device("cuda"), dtype=dtype, dim=lambda: dims)
+        t.permute = lambda *_: t
+        return t
+
+    op = graph(50, 100, 8)
+    for fn, args in ((tsp.spmv, (on_card(2),)),
+                     (tsp.attention_spmv, (torch.ones(op.num_edges, 2), on_card(3)))):
+        with pytest.raises(ValueError, match="operator on cpu" if route else "float32 or bf"):
+            fn(op, *args)
+        with pytest.raises(ValueError, match="row_ptr"):
+            fn(op.replace(row_ptr=None), *args)
+
+
+def test_attention_on_the_cpu_takes_the_plain_version_and_launches_nothing(monkeypatch):
+    counters = (sparse_cuda.spmm_launches, sparse_cuda.spmm_t_launches,
+                sparse_cuda.sddmm_launches)
+    before = [c.count for c in counters]
+    monkeypatch.setattr(sparse_cuda, "_lib", lambda: pytest.fail("the CPU loaded the kernel"))
+    op = graph(200, 500, 9)
+    p = torch.rand(op.num_edges, 3, requires_grad=True)
+    x = torch.randn(200, 3, 5, requires_grad=True)
+    out = tsp.attention_spmv(op, p, x)
+    out.sum().backward()
+    want = torch.zeros(200, 3, 5).index_add(0, op.row.long(),
+                                            p.detach()[..., None] * x.detach()[op.col.long()])
+    torch.testing.assert_close(out.detach(), want)
+    assert p.grad is not None and x.grad is not None
+    assert [c.count for c in counters] == before
