@@ -38,6 +38,16 @@ total last, as ``"total"``); any failure exits non-zero:
    whole rows (the forward) and whole sources (the gradients) so that no
    ``[E, H, D]`` tensor exists, within the same two limits; one launch of
    each kernel a head; one head's kernels timed beside the two bounds.
+   Then GAT's edge softmax (``gat_softmax_cuda.gat_softmax``,
+   ``csrc/gat_softmax.cu``) at the same shapes, 4 bfloat16 heads: one
+   launch of each of its three kernels a call, two calls bit for bit,
+   against the ATen path on the same card inputs (weights and self-edge
+   within a bfloat16 ulp, denominator within two, the scores' gradients
+   within 2^-6 of their terms' magnitudes); each kernel timed beside its
+   byte bound at 3.35 TB/s, the ATen path timed as the yardstick, and the
+   attention layer at 4 heads of 128, forward and backward, on the ATen
+   softmax (the parent's path) and on the kernels, with the peak memory
+   of each; the layer's forward runs no scatter and no ``index_add``.
 4. serve: the flagship LanczosNet of ``configs/qm8_lanczos_net.yaml``
    at full width, weights drawn from a seeded generator, behind
    ``Predictor`` and ``MicroBatcher``, answers QM8-like requests from
@@ -292,9 +302,9 @@ from lanczosnet_torch.ops.lanczos_cuda import (
 )
 from lanczosnet_torch.ops.normalize import build_operator_stack
 from lanczosnet_torch.ops import sparse as sparse_mod
-from lanczosnet_torch.ops import sparse_cuda
+from lanczosnet_torch.ops import gat_softmax_cuda, sparse_cuda
 from lanczosnet_torch.ops.sparse import SparseOp, spmv
-from lanczosnet_torch.ops.sparse_cuda import csr_row_ptr
+from lanczosnet_torch.ops.sparse_cuda import csr_row_ptr, csr_source_view
 from lanczosnet_torch.serve import MicroBatcher, Predictor
 from lanczosnet_torch.serve_http import ModelServer, make_http_server, serve_forever_in_thread
 from lanczosnet_torch.train import citation_runner as citation_runner_mod
@@ -581,7 +591,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    built = _build.build_all(["lanczos_tridiag", "lanczos_stream", "spmm_csr"])
+    built = _build.build_all(["lanczos_tridiag", "lanczos_stream", "spmm_csr", "gat_softmax"])
     for b in built:
         log = [ln.strip() for ln in b.log.splitlines() if ln.strip()]
         emit("build", kernel=b.name, seconds=b.seconds, library=b.path.name, nvcc_log=log)
@@ -929,12 +939,184 @@ def heads_check(n: int, e: int, heads: int, d: int, dev) -> dict:
     return out
 
 
-def phase_spmm_kernel(dev, smi: str) -> tuple[dict, dict]:
+SOFTMAX_COUNTERS = (gat_softmax_cuda.softmax_launches, gat_softmax_cuda.softmax_grad_launches,
+                    gat_softmax_cuda.softmax_src_grad_launches)
+
+
+def softmax_bytes(n: int, e: int, heads: int, itemsize: int) -> dict:
+    """Each softmax kernel's bytes a call (``row_ptr``/``col_ptr`` counted):
+    the forward reads the edges (col, val), each score table once and
+    writes the weights float32 ``[H, E]`` and three ``[n, H]`` results; the
+    destination side reads the edges, the scores, the max, the weights'
+    and the denominator's gradients and writes the ``[E, H]`` logit
+    gradients and ``s_dst``'s; the source side reads ``col_ptr``,
+    ``col_perm`` and the logit gradients once (compulsory) or a 32-byte
+    sector an edge (``gathered``: its reads in source order are 8 bytes
+    at random edges of a table that L2 cannot hold) and writes ``s_src``'s
+    gradient."""
+    node = n * heads * itemsize
+    ptr = 4 * (n + 1)
+    fwd = ptr + 8 * e + 3 * node + 4 * heads * e + 3 * node
+    grad = ptr + 8 * e + 4 * node + 4 * heads * e + itemsize * heads * e + node
+    src = ptr + 4 * e + node
+    return {"forward": fwd, "grad": grad, "src_grad": src + itemsize * heads * e,
+            "src_grad_gathered": src + 32 * e}
+
+
+def aten_softmax(op: SparseOp, s_dst, s_src, self_logits, slope: float = 0.2) -> tuple:
+    """The parent's path: ATen's softmax over ``[E, H]`` (the gathers, the
+    scatter max, the float32 segment sums) and the cast of its weights to
+    the head-major float32 that the CSR kernels read."""
+    logits = torch.nn.functional.leaky_relu(
+        sparse_mod.row_gather(op, s_dst) + sparse_mod.edge_gather(op, s_src), slope)
+    p, denom, p_self = sparse_mod.segment_softmax_coo(logits, op, self_logits)
+    return p.to(torch.float32).t().contiguous(), denom, p_self
+
+
+def softmax_check(n: int, e: int, heads: int, d: int, dev) -> dict:
+    """GAT's edge softmax on its kernels (``gat_softmax_cuda.gat_softmax``)
+    at the cell's shapes, on a random operator of ``spmm_case`` with
+    bfloat16 scores, against the ATen path on the same card inputs (the
+    weights and the self-edge's within one bfloat16 ulp, the denominator
+    within two, the scores' gradients within 2^-6 of their terms'
+    magnitudes: the card's ``expf`` against ATen's, and ATen's atomics,
+    which add in another order); one launch of each kernel a call; each
+    kernel timed beside its byte bound at 3.35 TB/s, and the ATen path's
+    time; then the whole attention layer (``gat_attention`` at 4 heads of
+    ``d``, forward and backward), parent (the ATen softmax) → change."""
+    op, s_src = spmm_case(n, e, heads, 2, dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    s_dst = torch.randn(n, heads, generator=gen, device=dev).to(s_src.dtype)
+    self_logits = torch.nn.functional.leaky_relu(s_dst + s_src, 0.2)
+    gp = torch.randn(e, heads, generator=gen, device=dev).to(s_src.dtype)
+    gd, gs = (torch.randn(n, heads, generator=gen, device=dev).to(s_src.dtype) for _ in range(2))
+    out, fails = {"shape": f"N={n} E={e} H={heads} bfloat16"}, []
+    view = csr_source_view(op.col, op.col_perm, n)
+
+    def kernels():
+        leaves = [t.detach().requires_grad_() for t in (s_dst, s_src, self_logits)]
+        p, den, p_self = gat_softmax_cuda.gat_softmax(op.row_ptr, op.col, op.val, *leaves, 0.2,
+                                                      None, view)
+        denom = torch.clamp_min(den + p_self, 1e-16)
+        torch.autograd.backward((p, denom, p_self), (gp.float().t(), gd, gs))
+        return (p.detach(), denom.detach(), p_self.detach()), [t.grad for t in leaves]
+
+    counts = [c.count for c in SOFTMAX_COUNTERS]
+    got, got_grads = kernels()
+    torch.cuda.synchronize()
+    out["launches_per_call"] = dict(zip(("forward", "grad", "src_grad"), (
+        c.count - before for c, before in zip(SOFTMAX_COUNTERS, counts))))
+    if out["launches_per_call"] != {"forward": 1, "grad": 1, "src_grad": 1}:
+        fails.append(f"launches of one call: {out['launches_per_call']}, not 1 each")
+    again, again_grads = kernels()
+    if not all(torch.equal(a, b) for a, b in zip(got + tuple(got_grads),
+                                                  again + tuple(again_grads))):
+        fails.append("two calls differ")
+    del again, again_grads
+
+    leaves = [t.detach().requires_grad_() for t in (s_dst, s_src, self_logits)]
+    x = sparse_mod.row_gather(op, leaves[0]) + sparse_mod.edge_gather(op, leaves[1])
+    x.retain_grad()
+    p, denom, p_self = sparse_mod.segment_softmax_coo(
+        torch.nn.functional.leaky_relu(x, 0.2), op, leaves[2])
+    torch.autograd.backward((p, denom, p_self), (gp, gd, gs))
+    terms = x.grad.float().abs()
+    dst_terms = torch.zeros(n, heads, device=dev).index_add_(0, op.row, terms)
+    src_terms = torch.zeros(n, heads, device=dev).index_add_(0, op.col, terms)
+    del x, terms
+    want = (p.detach().float().t(), denom.detach(), p_self.detach())
+    want_grads = [t.grad for t in leaves]
+    del p, denom, p_self, leaves
+    self_terms = (gs.float() + gd.float()).abs() * want[2].float()
+    for name, a, b, ulps in zip(("p", "denom", "p_self"), got, want, (1, 2, 1)):
+        err = (a.float() - b.float()).abs()
+        out[f"{name}_max_abs_err"] = float(err.max())
+        if not bool((err <= ulps * 2**-7 * b.float().abs() + 1e-30).all()):
+            fails.append(f"{name} beyond {ulps} bfloat16 ulp of the ATen path's")
+        del err
+    for name, a, b, t in zip(("ds_dst", "ds_src", "dself"), got_grads, want_grads,
+                             (dst_terms, src_terms, self_terms)):
+        err = (a.float() - b.float()).abs()
+        out[f"{name}_max_abs_err"] = float(err.max())
+        if not bool((err <= 2**-6 * (t + b.float().abs()) + 1e-30).all()):
+            fails.append(f"{name} beyond 2^-6 of its terms' magnitudes")
+        del err
+    del got, got_grads, want, want_grads, dst_terms, src_terms
+    torch.cuda.empty_cache()
+
+    m, p, den, _ = gat_softmax_cuda._forward(gat_softmax_cuda.BOTH, op.row_ptr, op.col, op.val,
+                                             s_dst, s_src, self_logits, None, 0.2)
+    gl, _ = gat_softmax_cuda._grad(op.row_ptr, op.col, op.val, s_dst, s_src, m,
+                                   gp.float().t().contiguous(), gd, 0.2)
+    one = {
+        "forward": lambda: gat_softmax_cuda._forward(gat_softmax_cuda.BOTH, op.row_ptr, op.col,
+                                                     op.val, s_dst, s_src, self_logits, m, 0.2),
+        "grad": lambda: gat_softmax_cuda._grad(op.row_ptr, op.col, op.val, s_dst, s_src, m,
+                                               p, gd, 0.2),
+        "src_grad": lambda: gat_softmax_cuda._src_grad(view[1], view[0], gl, n),
+    }
+    nbytes = softmax_bytes(n, e, heads, s_src.element_size())
+    for name, kernel in one.items():
+        k_ms = cuda_ms(kernel, 10, 2)
+        bound = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = {"kernel_ms": k_ms, "bound_ms": bound, "bound_bytes": nbytes[name],
+                     "share_of_bound_pct": 100.0 * bound / k_ms}
+    g_bound = nbytes["src_grad_gathered"] / HBM_BYTES_PER_S * 1e3
+    out["src_grad"].update({"bound_ms_gathered": g_bound,
+                            "share_of_gathered_bound_pct": 100.0 * g_bound /
+                            out["src_grad"]["kernel_ms"]})
+    del m, p, den, gl, one
+    torch.cuda.empty_cache()
+    leaves = [t.detach().requires_grad_() for t in (s_dst, s_src, self_logits)]
+    out["aten_forward_ms"] = cuda_ms(lambda: aten_softmax(op, s_dst, s_src, self_logits), 3, 1)
+    out["aten_forward_backward_ms"] = cuda_ms(lambda: torch.autograd.backward(
+        aten_softmax(op, *leaves), (gp.float().t(), gd, gs)), 3, 1)
+    out["kernels_forward_backward_ms"] = cuda_ms(kernels, 3, 1)
+    del leaves
+    torch.cuda.empty_cache()
+
+    # the attention layer, parent (ATen's softmax) → change, at one head width
+    hp = torch.randn(n, heads, d, generator=gen, device=dev).to(s_src.dtype)
+    g = torch.randn(n, heads, d, generator=gen, device=dev).to(s_src.dtype)
+
+    def parent_layer(s_d, s_s, h):
+        sl = torch.nn.functional.leaky_relu(s_d + s_s, 0.2)
+        logits = torch.nn.functional.leaky_relu(
+            sparse_mod.row_gather(op, s_d) + sparse_mod.edge_gather(op, s_s), 0.2)
+        p, denom, p_self = sparse_mod.segment_softmax_coo(logits, op, sl)
+        msg = sparse_mod.attention_spmv(op, p, h) + p_self[..., None] * h
+        return msg / denom[..., None].to(h.dtype)
+
+    layer = {"parent": parent_layer, "change": lambda *a: sparse_mod.gat_attention(op, *a)}
+    for name, fn in layer.items():
+        leaves = [t.detach().requires_grad_() for t in (s_dst, s_src, hp)]
+        out[f"layer_{name}_forward_ms"] = cuda_ms(lambda: fn(s_dst, s_src, hp), 3, 1)
+        out[f"layer_{name}_forward_backward_ms"] = cuda_ms(
+            lambda: fn(*leaves).backward(g), 3, 1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fn(*leaves).backward(g)
+        torch.cuda.synchronize()
+        out[f"layer_{name}_peak_gib_over_inputs"] = (
+            torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        del leaves
+        torch.cuda.empty_cache()
+    out["layer_head_width"] = d
+    out["forward_kernels"] = device_kernels(lambda: sparse_mod.gat_attention(op, s_dst, s_src, hp))
+    if any("scatter" in k or "indexFunc" in k for k in out["forward_kernels"]):
+        fails.append(f"the layer's forward ran a scatter or index_add: {out['forward_kernels']}")
+    if fails:
+        raise SmokeFailure(f"gat_softmax at {out['shape']}: " + "; ".join(fails))
+    return out
+
+
+def phase_spmm_kernel(dev, smi: str) -> tuple[dict, dict, dict]:
     """The CSR product kernels at the main path's two shapes: the 10M
     LanczosNet's (10M nodes, 25M edges, F=32, 64-byte rows) and the wide
     GCN's (1M, 2.5M, F=256, 512-byte rows), both bfloat16; then GAT's
     heads at the ogbn-products cell's (2.45M nodes, 123.7M edges, 4
-    heads of 128 and of 47: 256- and 94-byte rows). → (by F, by D)."""
+    heads of 128 and of 47: 256- and 94-byte rows), and its edge softmax
+    there. → (by F, by D, the softmax's)."""
     res, heads = {}, {}
     for n, e, f in SPMM_SHAPES:
         res[f] = spmm_shape_check(n, e, f, dev)
@@ -945,7 +1127,10 @@ def phase_spmm_kernel(dev, smi: str) -> tuple[dict, dict]:
         heads[d] = heads_check(n, e, h, d, dev)
         emit("spmm_heads", **heads[d], nvidia_smi=smi)
         torch.cuda.empty_cache()
-    return res, heads
+    softmax = softmax_check(n, e, h, widths[0], dev)
+    emit("softmax", **softmax, nvidia_smi=smi)
+    torch.cuda.empty_cache()
+    return res, heads, softmax
 
 
 def plain_reference(pred: Predictor, chunk: list) -> np.ndarray:
@@ -3761,7 +3946,7 @@ def main() -> None:
     timed("build", phase_build)
     barrier = timed("barrier", phase_barrier, dev)
     kern = timed("kernel", phase_kernel, dev, barrier["small_launch_ms"])
-    spmm, spmm_heads = timed("spmm_kernel", phase_spmm_kernel, dev, smi)
+    spmm, spmm_heads, softmax = timed("spmm_kernel", phase_spmm_kernel, dev, smi)
     serve_launches = timed("serve", phase_serve, dev, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runs_") as runs:
         runs = Path(runs)
@@ -3787,10 +3972,10 @@ def main() -> None:
                                            Path(runs) / "dense")
         node_launches = timed("node_sharded_citation", phase_node_sharded_citation, dev, smi,
                               Path(runs) / "node_sharded", dense_runs)
-        csr_before = [c.count for c in CSR_COUNTERS]
+        csr_before = [c.count for c in CSR_COUNTERS + SOFTMAX_COUNTERS]
         graphs, peaks = timed("sparse_citation", phase_sparse_citation, dev, smi,
                               Path(runs) / "sparse")
-        csr_main = [c.count - b for c, b in zip(CSR_COUNTERS, csr_before)]
+        csr_main = [c.count - b for c, b in zip(CSR_COUNTERS + SOFTMAX_COUNTERS, csr_before)]
         timed("mem_probe", phase_mem_probe, dev, smi, Path(runs) / "mem_probe", graphs, peaks)
         timed("sharded_citation", phase_sharded_citation, dev, smi, Path(runs) / "sharded",
               graphs)
@@ -3869,7 +4054,24 @@ def main() -> None:
         "library": LIBRARY_ROUTES[name],
     } for name, err, launches in zip(("spmm", "spmm_t", "sddmm"),
                                      ("out_max_abs_err", "dx_max_abs_err", "dval_max_abs_err"),
-                                     csr_main))]}), flush=True)
+                                     csr_main[:3])), *({
+        "name": f"gat_softmax_{name}",
+        "route": "cuda",
+        "source": "lanczosnet_torch/csrc/gat_softmax.cu",
+        "replaces": "none: XLA's gathers, segment_max and segment_sum "
+                    "(lanczosnet_tpu/ops/sparse.py:segment_softmax_coo)",
+        "launches": launches,
+        "launches_by_path": {"sparse_citation": launches},
+        "shape": softmax["shape"],
+        **softmax[name],
+        "launches_per_call": softmax["launches_per_call"][name],
+        "max_abs_err": {k: softmax[f"{k}_max_abs_err"] for k in errs},
+        "aten_ms": softmax["aten_forward_ms" if name == "forward" else
+                           "aten_forward_backward_ms"],
+        "library": "none: no PyTorch call computes a segment softmax over a CSR",
+    } for name, errs, launches in zip(("forward", "grad", "src_grad"),
+                                      (("p", "denom", "p_self"), ("ds_dst", "dself"),
+                                       ("ds_src",)), csr_main[3:]))]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

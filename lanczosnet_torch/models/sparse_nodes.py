@@ -60,6 +60,7 @@ from lanczosnet_torch.models.base import (
 from lanczosnet_torch.ops.precision import f32_matmul
 from lanczosnet_torch.ops.sparse import (
     SparseOp,
+    attention_view,
     gat_attention,
     learned_kernel_op,
     live_degree,
@@ -237,13 +238,15 @@ class SparseGAT(SparseNodeModel):
         h = x.to(self.dtype)
         n = h.shape[0]
         last = len(self.proj) - 1
+        view = None  # the card's source-major view of op, built once for every layer
         for li, (proj, a_src, a_dst) in enumerate(zip(self.proj, self.att_src, self.att_dst)):
             with span("model.dense"):
                 hp = proj(h).reshape(n, a_src.shape[0], -1)  # [N, H, D]
             s_src = (hp * a_src.to(self.dtype)).sum(-1)  # [N, H]
             s_dst = (hp * a_dst.to(self.dtype)).sum(-1)
             with span("model.attention"):
-                msg = gat_attention(op, s_dst, s_src, hp, self.negative_slope)
+                view = view or attention_view(op, hp)
+                msg = gat_attention(op, s_dst, s_src, hp, self.negative_slope, view=view)
             if self.skip is None:
                 h = self.drop(F.elu(msg.reshape(n, -1)))
                 continue

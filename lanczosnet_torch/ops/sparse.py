@@ -17,9 +17,17 @@ version ``_spmv_plain``, the gather, edge scale and segment sum below,
 which the kernel matches bit for bit. GAT's weighted sum
 ``attention_spmv`` takes the same kernel on the card, one launch a head
 (``sparse_cuda.csr_spmm_heads``), its plain version
-``_attention_plain`` on the CPU. A CUDA tensor the kernels do not take
-(a dtype other than float32 and bfloat16) raises. Every other op here
-runs on ATen's gathers and segment sums on either device.
+``_attention_plain`` on the CPU. GAT's edge softmax (``gat_attention``
+of a ``SparseOp``, whole or a sharded piece) takes its own kernels on
+the card (``ops/gat_softmax_cuda.py``, ``csrc/gat_softmax.cu``): the
+logits, max, weights and denominator in one walk of each row, the
+weights written head-major for the weighted sums, the gradient by row
+and then by source; their plain version is ``segment_softmax_coo`` and
+autograd on the CPU, which they match at every rounding but the card's
+``expf`` (at most a bfloat16 ulp in a weight). A CUDA tensor the
+kernels do not take (a dtype other than float32 and bfloat16) raises.
+Every other op here, the ring form's softmax included, runs on ATen's
+gathers and segment sums on either device.
 
 Dtypes: a 16-bit message is widened to float32 before every segment
 sum and narrowed after it (``_segsum``), so no ``index_add_`` runs in
@@ -69,7 +77,9 @@ import torch.nn.functional as F
 from lanczosnet_torch.ops.eigh import eigh_dispatch
 from lanczosnet_torch.ops.lanczos import lanczos_tridiag_matvec, tridiag_matrix
 from lanczosnet_torch.ops.precision import f32_matmul
-from lanczosnet_torch.ops.sparse_cuda import csr_row_ptr, csr_spmm, csr_spmm_heads
+from lanczosnet_torch.ops.gat_softmax_cuda import gat_softmax, gat_softmax_max
+from lanczosnet_torch.ops.sparse_cuda import (csr_row_ptr, csr_source_view, csr_spmm,
+                                               csr_spmm_heads)
 from lanczosnet_torch.parallel.comm import Comm, all_gather_rows, pmax, psum, ring_hop
 from lanczosnet_torch.utils.profiling import span
 
@@ -551,20 +561,69 @@ def attention_spmv(op: SparseOp, p: torch.Tensor, x: torch.Tensor) -> torch.Tens
     """``Σ_{e: row=i} p_e · x[col_e]``: per-edge weights ``p [E, ...]``
     against ``x [N, ..., F]``. On the card, heads ``p [E, H]`` and ``x
     [N, H, D]`` (this rank's block when node-sharded) take the CSR kernel
-    a head (``sparse_cuda.csr_spmm_heads`` on x laid out head-major,
-    ``p``'s columns its weights), with no ``[E, H, D]`` tensor, and any
-    other shape raises; a CPU tensor takes ``_attention_plain``, which the
-    kernel matches bit for bit."""
+    a head (``_attention_heads`` on ``p`` cast to x's dtype, head-major),
+    with no ``[E, H, D]`` tensor, and any other shape raises; a CPU tensor
+    takes ``_attention_plain``, which the kernel matches bit for bit."""
     if x.device.type != "cuda":
         return _attention_plain(op, p, x)
     if p.dim() != 2 or x.dim() != 3:
         raise ValueError(f"attention_spmv on the card takes p [E, H] and x [N, H, D], got "
                          f"{tuple(p.shape)} and {tuple(x.shape)}")
+    return _attention_heads(op, p.to(x.dtype).to(torch.float32).t(), x)
+
+
+def _attention_heads(op: SparseOp, w: torch.Tensor, x: torch.Tensor,
+                     view: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """``attention_spmv`` on the card from head-major weights ``w [H, E]``
+    float32: ``sparse_cuda.csr_spmm_heads`` on x laid out head-major, its
+    backward over ``view`` (``csr_source_view``'s ``perm`` and
+    ``col_ptr``) where given."""
     row_ptr = _card_row_ptr(op, "attention_spmv")
     xg = gather_nodes(op, x).permute(1, 0, 2)
-    w = p.to(x.dtype).to(torch.float32).t()
-    out = csr_spmm_heads(row_ptr, op.row, op.col, w, op.col_perm, xg)
+    perm, col_ptr = view if view is not None else (op.col_perm, None)
+    out = csr_spmm_heads(row_ptr, op.row, op.col, w, perm, xg, col_ptr)
     return _edge_sum(op, out.permute(1, 0, 2))
+
+
+def attention_view(op: AnyOp, *tensors: torch.Tensor
+                   ) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+    """The source-major view (``csr_source_view``: ``perm`` and ``col_ptr``)
+    that GAT's backward on the card reads, the softmax's source side and
+    the weighted sums' transposed view alike, for a ``SparseOp`` on the
+    card where one of ``tensors`` wants a gradient; else None. It depends
+    on ``op`` alone: built once, it serves every layer on ``op``."""
+    if (isinstance(op, RingOp) or tensors[0].device.type != "cuda"
+            or not torch.is_grad_enabled() or not any(t.requires_grad for t in tensors)):
+        return None
+    n_src = op.n * (op.gather_axis.size if op.gather_axis is not None else 1)
+    return csr_source_view(op.col, op.col_perm, n_src)
+
+
+def _gat_attention_card(op: SparseOp, s_dst: torch.Tensor, s_src: torch.Tensor,
+                        hp: torch.Tensor, self_logits: torch.Tensor, negative_slope: float,
+                        eps: float, view: Optional[tuple[torch.Tensor, torch.Tensor]]
+                        ) -> torch.Tensor:
+    """``gat_attention`` of a ``SparseOp`` on the card: the softmax kernels
+    (``gat_softmax_cuda.gat_softmax``) write the weights head-major, which
+    the weighted sums' kernels read as they are. An edge-sharded piece runs
+    the max pass, ``pmax``, then the exponential pass, and sums the
+    denominator over the shards; a node-sharded one is local, its sources
+    gathered. Both backwards read ``view`` (``attention_view``'s), built
+    here where a gradient is wanted and the caller gave none."""
+    row_ptr = _card_row_ptr(op, "gat_attention")
+    src = gather_nodes(op, s_src)
+    view = view or attention_view(op, s_dst, s_src, hp)
+    m = None
+    if op.axis is not None:
+        m = pmax(gat_softmax_max(row_ptr, op.col, op.val, s_dst, src, self_logits,
+                                 negative_slope), op.axis)
+    p, den, p_self = gat_softmax(row_ptr, op.col, op.val, s_dst, src, self_logits,
+                                 negative_slope, m, view)
+    denom = torch.clamp_min(_edge_sum(op, den) + p_self, eps)
+    if hp.dtype != s_dst.dtype:  # the weights as attention_spmv's cast leaves them
+        p = p.to(hp.dtype).to(torch.float32)
+    msg = _attention_heads(op, p, hp, view) + p_self[..., None] * hp
+    return msg / denom[..., None].to(hp.dtype)
 
 
 def gat_attention(
@@ -574,19 +633,33 @@ def gat_attention(
     hp: torch.Tensor,
     negative_slope: float = 0.2,
     eps: float = 1e-16,
+    view: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """GAT's neighbourhood attention: per destination, a softmax over its
     live incoming edges and an implicit self-edge of the logits
     ``leaky_relu(s_dst[dst] + s_src[src])`` (``[N, H]`` each), applied to
     ``hp [N, H, D]`` → ``[N, H, D]``.
 
-    Ring form is an online softmax: the source blocks of ``s_src`` and
-    ``hp`` go round the ring, and each destination carries a running
-    max, denominator and weighted sum, rescaled by ``exp(m − m_new)`` as
-    each block arrives; the self-edge joins after the last. Exact: the
-    softmax does not depend on the running max, whose gradient is cut."""
+    A ``SparseOp`` on the card, whole or a sharded piece, takes
+    ``_gat_attention_card``: the softmax and its gradient on hand-written
+    kernels, the weighted sums on the CSR kernels, the backwards over
+    ``view`` (``attention_view(op, ...)``, which a caller running several
+    layers on ``op`` builds once; built here where none is given). On the
+    CPU the plain version, ``segment_softmax_coo`` and ``attention_spmv``,
+    which the kernels match but for the card's ``expf``.
+
+    Ring form is an online softmax on ATen on either device (no
+    configuration the benchmark runs takes it): the source blocks of
+    ``s_src`` and ``hp`` go round the ring, and each destination carries a
+    running max, denominator and weighted sum, rescaled by ``exp(m −
+    m_new)`` as each block arrives; the self-edge joins after the last.
+    Exact: the softmax does not depend on the running max, whose gradient
+    is cut."""
     self_logits = F.leaky_relu(s_dst + s_src, negative_slope)
     if not isinstance(op, RingOp):
+        if s_dst.device.type == "cuda":
+            return _gat_attention_card(op, s_dst, s_src, hp, self_logits, negative_slope, eps,
+                                       view)
         logits = F.leaky_relu(row_gather(op, s_dst) + edge_gather(op, s_src), negative_slope)
         p, denom, p_self = segment_softmax_coo(logits, op, self_logits)
         msg = attention_spmv(op, p, hp) + p_self[..., None] * hp

@@ -28,9 +28,12 @@ plain version's default.
 
 GAT's attention (``ops/sparse.py:attention_spmv``) calls
 ``csr_spmm_heads``: H products over one CSR, each with its own edge
-weights (a head's attention weights), on a head-major ``x [H, N, D]``,
-one launch of each kernel a head; its backward builds the transposed
-view once for the H heads. No ``[E, H, D]`` tensor exists.
+weights (a head's attention weights, written head-major by the softmax
+kernels of ``ops/gat_softmax_cuda.py``), on a head-major ``x [H, N,
+D]``, one launch of each kernel a head; its backward builds the
+transposed view once for the H heads, on the ``col_ptr`` of
+``csr_source_view`` where the caller built it for the softmax's
+backward too. No ``[E, H, D]`` tensor exists.
 
 The launch shape comes from the row's width alone (``spmm_plan``): one
 algorithm whose parameters the shape sets, with no knob. Each kernel
@@ -102,16 +105,27 @@ def csr_row_ptr(row: torch.Tensor, n: int) -> torch.Tensor:
     return torch.searchsorted(row, marks, out_int32=True)
 
 
+def csr_source_view(col: torch.Tensor, col_perm: Optional[torch.Tensor], n_src: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The source-major order of the edges → ``(perm, col_ptr [n_src+1])``,
+    both int32: ``perm`` is ``col_perm`` or, without one, the stable sort
+    of ``col`` (edge order within a source); source s's edges are
+    ``perm[col_ptr[s]:col_ptr[s+1]]``."""
+    perm = col_perm if col_perm is not None else torch.argsort(col, stable=True).to(torch.int32)
+    return perm, csr_row_ptr(col.index_select(0, perm), n_src)
+
+
 def csr_transpose(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
-                  col_perm: Optional[torch.Tensor], n_src: int
+                  col_perm: Optional[torch.Tensor], n_src: int,
+                  col_ptr: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The source-major view of the edges → (``col_ptr [n_src+1]`` int32,
-    ``row[perm]``, ``val[..., perm]``), ``perm`` being ``col_perm`` or,
-    without one, the stable sort of ``col`` (edge order within a source);
-    ``val`` is ``[E]`` or one row of weights a head, ``[H, E]``."""
-    perm = col_perm if col_perm is not None else torch.argsort(col, stable=True)
-    col_ptr = csr_row_ptr(col.index_select(0, perm), n_src)
-    return col_ptr, row.index_select(0, perm), val.index_select(val.dim() - 1, perm)
+    ``row[perm]``, ``val[..., perm]``), ``perm`` and ``col_ptr`` being
+    ``csr_source_view``'s, or ``col_perm`` and ``col_ptr`` where the caller
+    built them; ``val`` is ``[E]`` or one row of weights a head, ``[H, E]``."""
+    if col_ptr is None:
+        col_perm, col_ptr = csr_source_view(col, col_perm, n_src)
+    return col_ptr, row.index_select(0, col_perm), val.index_select(val.dim() - 1, col_perm)
 
 
 @functools.cache
@@ -195,9 +209,9 @@ class _CsrSpmm(torch.autograd.Function):
     sddmm kernel a head."""
 
     @staticmethod
-    def forward(ctx, x, val, row_ptr, row, col, col_perm):
+    def forward(ctx, x, val, row_ptr, row, col, col_perm, col_ptr):
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, val, row_ptr, row, col,
-                              col_perm)
+                              col_perm, col_ptr)
         ctx.n_src = x.shape[1]
         out = torch.empty((x.shape[0], row_ptr.numel() - 1, x.shape[2]), dtype=x.dtype,
                           device=x.device)
@@ -208,11 +222,11 @@ class _CsrSpmm(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, val, row_ptr, row, col, col_perm = ctx.saved_tensors
+        x, val, row_ptr, row, col, col_perm, col_ptr = ctx.saved_tensors
         g = g.contiguous()
         dx = dval = None
         if ctx.needs_input_grad[0]:
-            col_ptr, row_t, val_t = csr_transpose(row, col, val, col_perm, ctx.n_src)
+            col_ptr, row_t, val_t = csr_transpose(row, col, val, col_perm, ctx.n_src, col_ptr)
             dx = g.new_empty((g.shape[0], ctx.n_src, g.shape[2]))
             for h in range(g.shape[0]):
                 _launch_spmm(col_ptr, row_t, val_t[h], g[h], spmm_t_launches, dx[h])
@@ -221,7 +235,7 @@ class _CsrSpmm(torch.autograd.Function):
             dval = torch.empty_like(val)
             for h in range(g.shape[0]):
                 _launch_sddmm(row_ptr, col, g[h], x[h], dval[h])
-        return dx, dval, None, None, None, None
+        return dx, dval, None, None, None, None, None
 
 
 def _check_operands(what: str, row_ptr, row, col, val, col_perm, x: torch.Tensor) -> None:
@@ -244,18 +258,20 @@ def _check_operands(what: str, row_ptr, row, col, val, col_perm, x: torch.Tensor
 
 
 def csr_spmm_heads(row_ptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
-                   val: torch.Tensor, col_perm: Optional[torch.Tensor], x: torch.Tensor
-                   ) -> torch.Tensor:
+                   val: torch.Tensor, col_perm: Optional[torch.Tensor], x: torch.Tensor,
+                   col_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per head h, ``S_h x[h]`` on the card, ``S_h`` the CSR of ``csr_spmm``
     with the weights ``val [H, E]`` float32, for ``x [H, N_src, D]``
     (float32 or bfloat16; each head's rows contiguous) → ``[H, n, D]`` in
-    x's dtype; differentiable in ``x`` and ``val``. Raises on what the
-    kernels do not take."""
+    x's dtype; differentiable in ``x`` and ``val``. ``col_ptr``, where
+    given, is ``csr_source_view``'s over ``col_perm`` and spares the
+    backward its build. Raises on what the kernels do not take."""
     _check_operands("csr_spmm_heads", row_ptr, row, col, val, col_perm, x)
     if x.dim() != 3 or val.dim() != 2 or val.shape[0] != x.shape[0] or x.shape[2] == 0:
         raise ValueError(f"csr_spmm_heads takes x [H, N, D] and val [H, E], got "
                          f"{tuple(x.shape)} and {tuple(val.shape)}")
-    return _CsrSpmm.apply(x.contiguous(), val.contiguous(), row_ptr, row, col, col_perm)
+    return _CsrSpmm.apply(x.contiguous(), val.contiguous(), row_ptr, row, col, col_perm,
+                          col_ptr)
 
 
 def csr_spmm(row_ptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
@@ -274,5 +290,5 @@ def csr_spmm(row_ptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor, val: t
     # one head: views in and out, whose backward is a view too (indexing's
     # would copy the gradient into a zeroed tensor)
     out = _CsrSpmm.apply(_as_rows(x).unsqueeze(0), val.contiguous().unsqueeze(0), row_ptr, row,
-                         col, col_perm).squeeze(0)
+                         col, col_perm, None).squeeze(0)
     return out.squeeze(1) if x.dim() == 1 else out
